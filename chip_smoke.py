@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (language_detector_tpu_torch).
+
+    python3 chip_smoke.py [--seed N] [--docs N]
+
+Needs one CUDA card; exits non-zero on the first failed phase. Phases,
+each printing one line:
+
+  device    the card (nvidia-smi name and power limit, torch's name)
+  build     nvcc builds csrc/fused_tote.cu for sm_90a from the checkout
+  parity    the fused-tote kernel against its plain PyTorch version on the
+            card, word1 and full output, bit for bit: adversarial grids
+            and real packer wires of every K bucket the corpus produces
+  main      detect_codes over >= 4,096 documents built from
+            eval_corpus.tsv (short slices, corpus documents, 10-50 KB
+            concatenations, CJK runs, dense CJK runs), one call per K
+            bucket; the kernel must have launched once per dispatch, at
+            every K of 32 ... 256, and the answers must equal the port's
+            own CPU run and detect_scalar on a 256-document sample; the
+            same documents as one shuffled batch must answer the same
+  times     the kernel alone (a prepared launch), its wrapper (with the
+            chunk-start prologue) and the plain version on the card
+            (CUDA events, median of reps) at the main path's dispatch
+            shape, the bound for that work, and end-to-end documents per
+            second per K bucket and as one shuffled batch
+  breakdown host-clock pack / device / epilogue split of the first pass
+  trace     torch.profiler over one pass of each: the device's busy share
+            of the wall time and the kernel launches the trace saw
+
+The last two lines are the kernel table as JSON and the run's verdict,
+{"ok": true, "device": {...}}. Imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+# float32 rate outside the tensor cores. The data sheet lists no int32
+# rate; this kernel's integer adds and compares are held to the float32
+# rate, which Hopper's int32 units do not reach, so the operations bound
+# is optimistic.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+HINT_BASE = 40960
+K_BUCKETS = (32, 64, 128, 256)
+H_WINDOW, N_WHACK, N_PRIOR = 64, 5, 4
+
+
+def phase(name: str, **fields) -> None:
+    print(f"phase {name}: " + json.dumps(fields, sort_keys=True),
+          flush=True)
+
+
+# -- adversarial grids (the same generator the CPU parity tests use) ------
+
+
+def _langprob(rng, n):
+    row = rng.integers(0, 256, n, dtype=np.uint32)
+    ps = rng.integers(0, 256, (n, 3), dtype=np.uint32)
+    ps[rng.random((n, 3)) < 0.3] = 0
+    return (row | (ps[:, 0] << 8) | (ps[:, 1] << 16)
+            | (ps[:, 2] << 24)).astype(np.uint32)
+
+
+def synthetic_wire(rng, G, K, hint_frac=0.0, whack=True, empty_frac=0.0,
+                   scripts=(1, 3, 6, 9), prior=False):
+    cnsl = rng.integers(0, min(K, 255) + 1, G).astype(np.int64)
+    if empty_frac:
+        cnsl[rng.random(G) < empty_frac] = 0
+    N = G * min(K, 255)
+    idx = rng.integers(0, 4096, N).astype(np.uint16)
+    if hint_frac:
+        hints = rng.random(N) < hint_frac
+        idx[hints] = (HINT_BASE + rng.integers(0, H_WINDOW,
+                                               int(hints.sum()))
+                      ).astype(np.uint16)
+    cmeta = (rng.integers(0, 1500, G).astype(np.uint32)
+             | (rng.integers(0, 600, G).astype(np.uint32) << 16)
+             | (rng.integers(0, 2, G).astype(np.uint32) << 28)
+             | (rng.integers(0, 2, G).astype(np.uint32) << 29))
+    wire = {
+        "idx": idx, "cnsl": cnsl.astype(np.uint8).reshape(1, G),
+        "cmeta": cmeta.astype(np.uint32),
+        "cscript": rng.choice(np.array(scripts, np.uint8), G),
+        "cwhack": (rng.integers(0, N_WHACK, G).astype(np.uint16) if whack
+                   else np.zeros(1, np.uint16)),
+        "hint_lp": _langprob(rng, H_WINDOW),
+        "whack_tbl": (rng.random((N_WHACK, 2, 256)) < 0.1
+                      ).astype(np.uint8),
+        "k_iota": np.arange(K, dtype=np.uint8),
+    }
+    if prior:
+        tbl = rng.integers(0, 13, (N_PRIOR, 2, 256)).astype(np.uint8)
+        tbl[rng.random((N_PRIOR, 2, 256)) < 0.7] = 0
+        tbl[0] = 0
+        wire["cprior"] = rng.integers(0, N_PRIOR, G).astype(np.uint16)
+        wire["prior_tbl"] = tbl
+    return wire
+
+
+def adversarial_wires(seed: int) -> list:
+    cases = [
+        ("random-hints-whacks", dict(G=24, K=24, hint_frac=0.15,
+                                     empty_frac=0.1)),
+        ("whack-absent-dummy", dict(G=12, K=16, whack=False)),
+        ("hint-window-only", dict(G=12, K=16, hint_frac=1.0,
+                                  whack=False)),
+        ("prior-planes", dict(G=24, K=24, hint_frac=0.1, prior=True)),
+        ("prior-no-whack", dict(G=12, K=16, whack=False, prior=True)),
+        ("script-latn", dict(G=12, K=16, scripts=(1,))),
+        ("script-hani", dict(G=12, K=16, scripts=(3,))),
+        ("script-arab", dict(G=12, K=16, scripts=(6,))),
+        ("script-other", dict(G=12, K=16, scripts=(9,))),
+        ("large-k32", dict(G=8192, K=32, hint_frac=0.05, prior=True)),
+        ("large-k64", dict(G=8192, K=64, hint_frac=0.05)),
+        ("large-k128", dict(G=4096, K=128, whack=False)),
+        ("large-k256", dict(G=2048, K=256, hint_frac=0.1, prior=True)),
+    ]
+    out = []
+    for i, (name, kw) in enumerate(cases):
+        out.append((name, synthetic_wire(np.random.default_rng(seed + i),
+                                         **kw)))
+    rng = np.random.default_rng(seed + 100)
+    empty = synthetic_wire(rng, G=16, K=8)
+    empty["cnsl"][:] = 0
+    empty["idx"] = empty["idx"][:1]
+    out.append(("all-empty", empty))
+    fat = synthetic_wire(rng, G=64, K=256, hint_frac=0.1)
+    fat["cnsl"][:] = 255
+    out.append(("fat-rows-k256", fat))
+    clamp = synthetic_wire(rng, G=64, K=16, prior=True)
+    clamp["idx"][::3] = 40000
+    clamp["idx"][1::5] = 0xFFFF
+    clamp["cwhack"][::2] = 999
+    clamp["cprior"][1::2] = 999
+    out.append(("out-of-range-clamps", clamp))
+    return out
+
+
+def s1_clip_case(dt):
+    """Doctored qprob rows push chunk totes past the 14-bit s1 clip."""
+    import dataclasses
+    lg3 = dt.lg_prob3.cpu().numpy().copy()
+    lg3[100], lg3[101] = 255, 63
+    doctored = dataclasses.replace(
+        dt, lg_prob3=torch.from_numpy(lg3).to(dt.device))
+    mk = lambda row, n: np.full(n, row | (37 << 8), np.uint32)  # noqa: E731
+    hint_lp = np.concatenate([
+        mk(100, 100), np.zeros(28, np.uint32),
+        mk(100, 64), mk(101, 1), np.zeros(63, np.uint32),
+        mk(100, 64), np.zeros(64, np.uint32)])
+    G, K = 3, 128
+    wire = {
+        "idx": (HINT_BASE + np.arange(G * K)).astype(np.uint16),
+        "cnsl": np.full((1, G), K, np.uint8),
+        "cmeta": np.full(G, 500 | (100 << 16) | (1 << 29), np.uint32),
+        "cscript": np.full(G, 1, np.uint8),
+        "cwhack": np.zeros(1, np.uint16), "hint_lp": hint_lp,
+        "whack_tbl": np.zeros((1, 2, 256), np.uint8),
+        "k_iota": np.arange(K, dtype=np.uint8),
+    }
+    return doctored, wire
+
+
+# -- documents --------------------------------------------------------------
+
+
+def build_docs(corpus: list, seed: int, n: int) -> list:
+    """Short slices, corpus documents and their concatenations, 10-50 KB
+    concatenations, CJK runs and dense CJK runs, made from the eval
+    corpus with `seed`. The dense runs draw from the first 256 unified
+    ideographs, whose unigram and bigram hits fill chunks past 128 slots,
+    so the mix reaches every K bucket (32 ... 256)."""
+    rng = random.Random(seed)
+    docs = []
+    n_long, n_cjk, n_dense = 48, 96, 128
+    n_rest = n - n_long - n_cjk - n_dense
+    for _ in range(n_rest * 2 // 3):
+        t = rng.choice(corpus)
+        lo = rng.randrange(max(1, len(t) - 10))
+        docs.append(t[lo:lo + rng.randint(8, 300)])
+    while len(docs) < n_rest:
+        docs.append(" ".join(rng.choice(corpus)
+                             for _ in range(rng.randint(1, 5))))
+    for _ in range(n_long):
+        target = rng.randint(10_000, 50_000)
+        parts, size = [], 0
+        while size < target:
+            parts.append(rng.choice(corpus))
+            size += len(parts[-1]) + 1
+        docs.append(" ".join(parts))
+    for _ in range(n_cjk):
+        docs.append("".join(chr(rng.randrange(0x4E00, 0x9FFF))
+                            for _ in range(rng.randint(300, 3000))))
+    for _ in range(n_dense):
+        docs.append("".join(chr(rng.randrange(0x4E00, 0x4F00))
+                            for _ in range(rng.randint(1500, 4000))))
+    rng.shuffle(docs)
+    return docs
+
+
+def k_of(native, docs, tables, reg) -> int:
+    return int(native.pack_chunks_native(docs, tables, reg)
+               .wire["k_iota"].shape[0])
+
+
+def group_by_k(docs, native, tables, reg, min_group: int) -> dict:
+    """Split docs by the K bucket each one packs into alone; a group too
+    small for the device path (<= min_group docs) joins the next wider
+    one, and the widest, if too small, takes in the next narrower one
+    (a group packs at its widest document's K)."""
+    by_k: dict = {}
+    for d in docs:
+        by_k.setdefault(k_of(native, [d], tables, reg), []).append(d)
+    ks = sorted(by_k)
+    for i, k in enumerate(ks[:-1]):
+        if len(by_k[k]) <= min_group:
+            by_k[ks[i + 1]] = by_k.pop(k) + by_k[ks[i + 1]]
+    ks = sorted(by_k)
+    if len(ks) > 1 and len(by_k[ks[-1]]) <= min_group:
+        by_k[ks[-1]] += by_k.pop(ks[-2])
+    return dict(sorted(by_k.items()))
+
+
+def timing_wire(pool, native, tables, reg, seed: int):
+    """A wire of the main path's dispatch shape: docs that pack at
+    K <= 64, added until the slot lane reaches the 163,840 bucket."""
+    rng = random.Random(seed)
+    docs: list = []
+    while True:
+        docs.extend(rng.choice(pool) for _ in range(256))
+        cb = native.pack_chunks_native(docs, tables, reg)
+        if int(cb.n_slots.sum()) > 131072:
+            return cb, len(docs)
+
+
+# -- measurement ------------------------------------------------------------
+
+
+def device_ms(fn, reps: int, inner: int) -> float:
+    """Median device time of one fn() call: the stream is held by a
+    sleep kernel while `inner` calls are enqueued, so the events bracket
+    device work only (not the host's launch overhead)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bound_ms(dt, p: dict, full_out: bool) -> tuple:
+    """Least time for this call's work on the card: bytes (each input
+    read once — slots this data uses, row planes, the tables — each
+    output written once) over HBM bandwidth, against operations (3 tote
+    adds per used slot; whack, prior, group test and two max passes per
+    language per row) over the peak rate. Returns (ms, bound_by, bytes,
+    operations)."""
+    cnsl = p["cnsl"].reshape(-1).to(torch.int64).clamp(max=p["K"])
+    slots = int(cnsl.sum())
+    G = cnsl.numel()
+    nbytes = slots * 2 + G * (1 + 4 + 1)              # idx, cnsl/cmeta/script
+    nbytes += p["hint_lp"].numel() * 4
+    if p["cwhack"].shape[-1] != 1:
+        nbytes += G * 2 + p["whack_tbl"].numel()
+    if "cprior" in p:
+        nbytes += G * 2 + p["prior_tbl"].numel()
+    for t in (dt.cat_ind2, dt.lg_prob3, dt.plang_to_lang,
+              dt.expected_score, dt.close_set):
+        nbytes += t.numel() * t.element_size()
+    nbytes += G * 4 * (2 if full_out else 1)
+    ops = 3 * slots + G * 256 * 5
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def device_busy(fn) -> dict:
+    """Run fn() once under torch.profiler and read the device's share of
+    the wall time from the trace: the union of its kernel, copy and
+    memset intervals over the host-clock seconds of the call (the
+    profiler's own host cost is inside that wall time). Also the trace's
+    fused_tote kernel count and device time. Busy fields are None when
+    the trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = BUILD / f"chip_smoke_trace.{os.getpid()}.json"
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    ours = [e.get("dur", 0) for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel"
+            and "fused_tote_kernel" in e.get("name", "")]
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return {"wall_s": wall, "device_events": len(spans),
+            "device_busy_s": busy_us / 1e6 if spans else None,
+            "device_busy_share": busy_us / 1e6 / wall if spans else None,
+            "fused_tote_traced": len(ours),
+            "fused_tote_traced_ms": sum(ours) / 1e3}
+
+
+def first_pass_breakdown(eng, groups: dict, native) -> dict:
+    """Host-clock split of the main path's first pass (no gate retry):
+    pack, device (wire copy + kernel + readback) and epilogue seconds,
+    summed over the K groups, and the retry pass's share of the docs."""
+    from language_detector_tpu_torch.ops.score import unpack_chunks_out
+    t = {"pack_s": 0.0, "device_s": 0.0, "epilogue_s": 0.0}
+    retry = 0
+    for g in groups.values():
+        t0 = time.monotonic()
+        cb = eng._pack(g)
+        t1 = time.monotonic()
+        rows = unpack_chunks_out(np.asarray(eng._launch(cb)),
+                                 cb.wire["cmeta"])
+        t2 = time.monotonic()
+        ep = native.epilogue_flat_native(rows, cb, eng.flags, eng.reg)
+        t3 = time.monotonic()
+        t["pack_s"] += t1 - t0
+        t["device_s"] += t2 - t1
+        t["epilogue_s"] += t3 - t2
+        retry += int(ep[:len(g), 12].sum())
+    t["retry_docs"] = retry
+    return t
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--docs", type=int, default=4200,
+                    help="documents on the main path (>= 4096)")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from language_detector_tpu_torch import native
+    from language_detector_tpu_torch.engine_scalar import detect_scalar
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.ops import kernels
+    from language_detector_tpu_torch.ops.device_tables import DeviceTables
+    from language_detector_tpu_torch.ops.score import (score_chunks_plain,
+                                                       wire_to_device)
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import DATA_DIR, load_tables
+
+    # -- device ---------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(smi, flush=True)
+    phase("device", nvidia_smi=smi, torch_name=kind,
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    # -- build ----------------------------------------------------------------
+    t0 = time.monotonic()
+    kernels.build(verbose=True)
+    build_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    if not native.available():
+        raise RuntimeError("native packer failed to build")
+    phase("build", kernel_s=round(build_s, 3),
+          packer_s=round(time.monotonic() - t0, 3), lib=str(kernels.LIB))
+
+    tables = load_tables()
+    dt = DeviceTables.from_host(tables, reg, dev)
+
+    # -- parity: kernel vs plain on the card ------------------------------------
+    corpus = [ln.split("\t", 1)[1].rstrip("\n") for ln in
+              open(DATA_DIR / "eval_corpus.tsv", encoding="utf-8")]
+    docs = build_docs(corpus, args.seed, args.docs)
+    groups = group_by_k(docs, native, tables, reg,
+                        NgramBatchEngine.TINY_BATCH_C_PATH)
+    pool = [d for k, g in groups.items() if k <= 64 for d in g]
+    tcb, n_timing_docs = timing_wire(pool, native, tables, reg, args.seed)
+
+    cases = [(n, w, dt) for n, w in adversarial_wires(args.seed)]
+    doctored, clip_wire = s1_clip_case(dt)
+    cases.append(("s1-clip", clip_wire, doctored))
+    for k, g in groups.items():
+        cases.append((f"real-k{k}", native.pack_chunks_native(
+            g, tables, reg).wire, dt))
+    cases.append(("real-timing-wire", tcb.wire, dt))
+    max_err = 0
+    checked = []
+    for name, wire, tdt in cases:
+        w = wire_to_device(wire, dev)
+        for full in (False, True):
+            got = kernels.score_chunks(tdt, w, full_out=full)
+            want = score_chunks_plain(tdt, w, full_out=full)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max()) if got.numel() else 0
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"kernel != plain on {name} (full={full}): "
+                    f"{int((got != want).sum())} words differ")
+        checked.append(f"{name}:G{wire['cnsl'].size}:K"
+                       f"{wire['k_iota'].shape[0]}")
+    real_k = {int(w["k_iota"].shape[0]) for n, w, _ in cases
+              if n.startswith("real-")}
+    if real_k != set(K_BUCKETS):
+        raise AssertionError(f"real wires cover K {sorted(real_k)}, want "
+                             f"{list(K_BUCKETS)}")
+    phase("parity", cases=len(cases), max_abs_err=max_err,
+          grids=checked)
+
+    # -- main path ------------------------------------------------------------
+    eng = NgramBatchEngine(tables, reg, device="cuda")
+    launch_k: list = []
+    engine_launch = eng._launch
+
+    def recorded_launch(cb):
+        launch_k.append(int(cb.wire["k_iota"].shape[0]))
+        return engine_launch(cb)
+
+    eng._launch = recorded_launch
+    kernels.launches = 0
+    t0 = time.monotonic()
+    codes = {k: eng.detect_codes(g) for k, g in groups.items()}
+    main_s = time.monotonic() - t0
+    launches = kernels.launches
+    eng._launch = engine_launch
+    n_docs = sum(len(g) for g in groups.values())
+    if n_docs < 4096:
+        raise AssertionError(f"main path drove {n_docs} docs, want 4096")
+    if launches <= 0:
+        raise AssertionError("main path never launched the kernel")
+    if launches != len(launch_k) or set(launch_k) != set(K_BUCKETS):
+        raise AssertionError(f"{launches} kernel launches over dispatches "
+                             f"at K {launch_k}, want one per dispatch and "
+                             f"every K of {list(K_BUCKETS)}")
+    stats = eng.stats_snapshot()
+
+    cpu = NgramBatchEngine(tables, reg, device="cpu")
+    for k, g in groups.items():
+        want = cpu.detect_codes(g)
+        bad = [i for i, (a, b) in enumerate(zip(codes[k], want)) if a != b]
+        if bad or len(want) != len(codes[k]):
+            raise AssertionError(f"K={k}: {len(bad)} answers differ from "
+                                 f"the CPU run, first {bad[:5]}")
+    flat = [(d, c) for k, g in groups.items()
+            for d, c in zip(g, codes[k])]
+    sample = random.Random(args.seed).sample(flat, 256)
+    for d, c in sample:
+        want = reg.code(detect_scalar(d, tables, reg).summary_lang)
+        if want != c:
+            raise AssertionError(f"detect_scalar says {want}, device {c}:"
+                                 f" {d[:60]!r}")
+    phase("main", docs=n_docs, chars=sum(len(d) for d, _ in flat),
+          groups={str(k): len(g) for k, g in groups.items()},
+          launch_k=launch_k, launches=launches, stats=stats,
+          cpu_equal=True, scalar_sample_equal=len(sample),
+          first_run_s=round(main_s, 3))
+
+    # the same documents as one shuffled batch, as a user sends them: it
+    # packs each slice at its widest document's K
+    by_doc = dict(flat)
+    mixed = eng.detect_codes(docs)
+    bad = [i for i, (d, c) in enumerate(zip(docs, mixed)) if by_doc[d] != c]
+    if bad or len(mixed) != len(docs):
+        raise AssertionError(f"mixed batch: {len(bad)} answers differ from "
+                             f"the per-bucket run, first {bad[:5]}")
+
+    # -- times ----------------------------------------------------------------
+    p = wire_to_device(tcb.wire, dev)
+    G, K = p["cnsl"].numel(), p["K"]
+    call = kernels.prepare(dt, p)
+    kms = device_ms(lambda: kernels.launch(call), 30, 20)
+    wms = device_ms(lambda: kernels.score_chunks_cuda(dt, p), 30, 20)
+    pms = device_ms(lambda: score_chunks_plain(dt, p), 10, 3)
+    pms2 = device_ms(lambda: score_chunks_plain(dt, p), 10, 3)
+    wms2 = device_ms(lambda: kernels.score_chunks_cuda(dt, p), 30, 20)
+    kms2 = device_ms(lambda: kernels.launch(call), 30, 20)
+    bms, bound_by, bound_bytes, bound_ops = bound_ms(dt, p, False)
+
+    def run_groups():
+        for g in groups.values():
+            eng.detect_codes(g)
+
+    def run_mixed():
+        eng.detect_codes(docs)
+
+    e2e, e2e_mixed = [], []
+    for _ in range(5):
+        for fn, acc in ((run_groups, e2e), (run_mixed, e2e_mixed)):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            acc.append(time.monotonic() - t0)
+    phase("times", G=G, K=K, N=int(p["idx"].numel()),
+          slots=int(tcb.n_slots.sum()), timing_docs=n_timing_docs,
+          kernel_ms=[kms, kms2], wrapper_ms=[wms, wms2],
+          plain_ms=[pms, pms2], bound_ms=bms, bound_by=bound_by,
+          bound_bytes=bound_bytes, bound_ops=bound_ops,
+          bytes_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
+          e2e_s=e2e, e2e_docs_per_s=n_docs / statistics.median(e2e),
+          e2e_mixed_s=e2e_mixed,
+          e2e_mixed_docs_per_s=len(docs) / statistics.median(e2e_mixed))
+    phase("breakdown", **first_pass_breakdown(eng, groups, native))
+    phase("trace", per_bucket=device_busy(run_groups),
+          mixed=device_busy(run_mixed))
+
+    print(json.dumps({"kernels": [{
+        "name": "fused_tote",
+        "route": "cuda",
+        "source": "language_detector_tpu_torch/csrc/fused_tote.cu",
+        "replaces": "language_detector_tpu/ops/kernels.py:226",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": statistics.median([kms, kms2]),
+        "plain_ms": statistics.median([pms, pms2]),
+        "bound_ms": bms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
