@@ -2,15 +2,18 @@
 """On-card smoke run of the PyTorch/CUDA port (language_detector_tpu_torch).
 
     python3 chip_smoke.py [--seed N] [--docs N]
+    python3 chip_smoke.py --kernel-times [--port-root DIR]
 
 Needs one CUDA card; exits non-zero on the first failed phase. Phases,
 each printing one line:
 
   device    the card (nvidia-smi name and power limit, torch's name)
-  build     nvcc builds csrc/fused_tote.cu for sm_90a from the checkout
+  build     nvcc builds csrc/fused_tote.cu for sm_90a from the checkout;
+            the kernel's resident blocks per SM and the card's SM count
   parity    the fused-tote kernel against its plain PyTorch version on the
             card, word1 and full output, bit for bit: adversarial grids
-            and real packer wires of every K bucket the corpus produces
+            (ADVERSARIAL), real packer wires of every K bucket the corpus
+            produces, the timing wire and the mixed batch's wire
   main      detect_codes over >= 4,096 documents built from
             eval_corpus.tsv (short slices, corpus documents, 10-50 KB
             concatenations, CJK runs, dense CJK runs), one call per K
@@ -18,14 +21,27 @@ each printing one line:
             every K of 32 ... 256, and the answers must equal the port's
             own CPU run and detect_scalar on a 256-document sample; the
             same documents as one shuffled batch must answer the same
-  times     the kernel alone (a prepared launch), its wrapper (with the
-            chunk-start prologue) and the plain version on the card
-            (CUDA events, median of reps) at the main path's dispatch
-            shape, the bound for that work, and end-to-end documents per
-            second per K bucket and as one shuffled batch
+  times     the kernel alone (a prepared launch), its wrapper
+            (score_chunks_cuda: checks, output allocation, one launch) and
+            the plain version on the card (CUDA events, median of reps)
+            at the main path's dispatch shape (and the kernel on that grid
+            with every row emptied), the kernel and wrapper on
+            the mixed batch's own wire (all documents packed as one slice,
+            K = 256), the device time of one trivial launch (the floor
+            under any kernel's time), the bound for that work, and
+            end-to-end documents per second per K bucket and as one
+            shuffled batch
   breakdown host-clock pack / device / epilogue split of the first pass
   trace     torch.profiler over one pass of each: the device's busy share
-            of the wall time and the kernel launches the trace saw
+            of the wall time, the fused_tote launches the trace saw, and
+            every other kernel it saw (there must be none: a dispatch is
+            one launch, besides copies)
+
+--kernel-times runs only device, build and the kernel and wrapper times
+on the timing and mixed wires (phase kernel_times). With --port-root it
+imports language_detector_tpu_torch from another checkout (an earlier
+commit unpacked with git archive), so two versions of the kernel can be
+timed in turns on one card.
 
 The last two lines are the kernel table as JSON and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
@@ -113,26 +129,37 @@ def synthetic_wire(rng, G, K, hint_frac=0.0, whack=True, empty_frac=0.0,
     return wire
 
 
+# (name, synthetic_wire arguments), each drawn from its own seed
+_SYNTHETIC_CASES = [
+    ("random-hints-whacks", dict(G=24, K=24, hint_frac=0.15,
+                                 empty_frac=0.1)),
+    ("whack-absent-dummy", dict(G=12, K=16, whack=False)),
+    ("hint-window-only", dict(G=12, K=16, hint_frac=1.0, whack=False)),
+    ("prior-planes", dict(G=24, K=24, hint_frac=0.1, prior=True)),
+    ("prior-no-whack", dict(G=12, K=16, whack=False, prior=True)),
+    ("script-latn", dict(G=12, K=16, scripts=(1,))),
+    ("script-hani", dict(G=12, K=16, scripts=(3,))),
+    ("script-arab", dict(G=12, K=16, scripts=(6,))),
+    ("script-other", dict(G=12, K=16, scripts=(9,))),
+    ("large-k32", dict(G=8192, K=32, hint_frac=0.05, prior=True)),
+    ("large-k64", dict(G=8192, K=64, hint_frac=0.05)),
+    ("large-k128", dict(G=4096, K=128, whack=False)),
+    ("large-k256", dict(G=2048, K=256, hint_frac=0.1, prior=True)),
+]
+
+# every grid adversarial_wires returns, in its order
+ADVERSARIAL = tuple(n for n, _ in _SYNTHETIC_CASES) + (
+    "all-empty", "fat-rows-k256", "out-of-range-clamps",
+    # the kernel's geometry: 8 rows per block, a persistent grid whose
+    # blocks walk multi-row ranges, chunk starts restarting per shard row
+    # (and, past 256 rows a block, in several scan tiles)
+    "rows-8193-k64", "rows-65536-k32", "two-shard", "empty-end-shards",
+    "tiles-3-shards-k8")
+
+
 def adversarial_wires(seed: int) -> list:
-    cases = [
-        ("random-hints-whacks", dict(G=24, K=24, hint_frac=0.15,
-                                     empty_frac=0.1)),
-        ("whack-absent-dummy", dict(G=12, K=16, whack=False)),
-        ("hint-window-only", dict(G=12, K=16, hint_frac=1.0,
-                                  whack=False)),
-        ("prior-planes", dict(G=24, K=24, hint_frac=0.1, prior=True)),
-        ("prior-no-whack", dict(G=12, K=16, whack=False, prior=True)),
-        ("script-latn", dict(G=12, K=16, scripts=(1,))),
-        ("script-hani", dict(G=12, K=16, scripts=(3,))),
-        ("script-arab", dict(G=12, K=16, scripts=(6,))),
-        ("script-other", dict(G=12, K=16, scripts=(9,))),
-        ("large-k32", dict(G=8192, K=32, hint_frac=0.05, prior=True)),
-        ("large-k64", dict(G=8192, K=64, hint_frac=0.05)),
-        ("large-k128", dict(G=4096, K=128, whack=False)),
-        ("large-k256", dict(G=2048, K=256, hint_frac=0.1, prior=True)),
-    ]
     out = []
-    for i, (name, kw) in enumerate(cases):
+    for i, (name, kw) in enumerate(_SYNTHETIC_CASES):
         out.append((name, synthetic_wire(np.random.default_rng(seed + i),
                                          **kw)))
     rng = np.random.default_rng(seed + 100)
@@ -149,6 +176,26 @@ def adversarial_wires(seed: int) -> list:
     clamp["cwhack"][::2] = 999
     clamp["cprior"][1::2] = 999
     out.append(("out-of-range-clamps", clamp))
+
+    rng = np.random.default_rng(seed + 200)
+    out.append(("rows-8193-k64", synthetic_wire(
+        rng, G=8193, K=64, hint_frac=0.05, prior=True)))
+    out.append(("rows-65536-k32", synthetic_wire(
+        rng, G=65536, K=32, hint_frac=0.05, empty_frac=0.1)))
+    two = synthetic_wire(rng, G=2 * 2048, K=64, hint_frac=0.05, prior=True)
+    two["cnsl"] = two["cnsl"].reshape(2, 2048)
+    two["idx"] = two["idx"].reshape(2, -1)
+    out.append(("two-shard", two))
+    ends = synthetic_wire(rng, G=4 * 2051, K=32, hint_frac=0.05)
+    ends["cnsl"] = ends["cnsl"].reshape(4, 2051)
+    ends["cnsl"][0] = 0
+    ends["cnsl"][-1] = 0
+    ends["idx"] = ends["idx"].reshape(4, -1)
+    out.append(("empty-end-shards", ends))
+    tiles = synthetic_wire(rng, G=3 * 100_000, K=8, empty_frac=0.2)
+    tiles["cnsl"] = tiles["cnsl"].reshape(3, 100_000)
+    out.append(("tiles-3-shards-k8", tiles))
+    assert tuple(n for n, _ in out) == ADVERSARIAL
     return out
 
 
@@ -303,8 +350,9 @@ def device_busy(fn) -> dict:
     the wall time from the trace: the union of its kernel, copy and
     memset intervals over the host-clock seconds of the call (the
     profiler's own host cost is inside that wall time). Also the trace's
-    fused_tote kernel count and device time. Busy fields are None when
-    the trace holds no device events."""
+    fused_tote kernel count and device time, and the count and names of
+    every other kernel it holds. Busy fields are None when the trace
+    holds no device events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -322,9 +370,12 @@ def device_busy(fn) -> dict:
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("ph") == "X" and e.get("cat") in
                    ("kernel", "gpu_memcpy", "gpu_memset"))
-    ours = [e.get("dur", 0) for e in events if e.get("ph") == "X"
-            and e.get("cat") == "kernel"
-            and "fused_tote_kernel" in e.get("name", "")]
+    kernel_events = [e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "kernel"]
+    ours = [e.get("dur", 0) for e in kernel_events
+            if "fused_tote_kernel" in e.get("name", "")]
+    others = sorted({e.get("name", "") for e in kernel_events
+                     if "fused_tote_kernel" not in e.get("name", "")})
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -334,7 +385,33 @@ def device_busy(fn) -> dict:
             "device_busy_s": busy_us / 1e6 if spans else None,
             "device_busy_share": busy_us / 1e6 / wall if spans else None,
             "fused_tote_traced": len(ours),
-            "fused_tote_traced_ms": sum(ours) / 1e3}
+            "fused_tote_traced_ms": sum(ours) / 1e3,
+            "other_kernels": len(kernel_events) - len(ours),
+            "other_kernel_names": others}
+
+
+def kernel_and_wrapper_ms(kernels, dt, p: dict) -> dict:
+    """Device time of the kernel alone (a prepared launch) and through its
+    wrapper (score_chunks_cuda) on one wire, in turns: kernel, wrapper,
+    wrapper, kernel."""
+    call = kernels.prepare(dt, p)
+    alone = lambda: kernels.launch(call)                      # noqa: E731
+    wrapped = lambda: kernels.score_chunks_cuda(dt, p)        # noqa: E731
+    k1 = device_ms(alone, 30, 20)
+    w1 = device_ms(wrapped, 30, 20)
+    w2 = device_ms(wrapped, 30, 20)
+    k2 = device_ms(alone, 30, 20)
+    return {"kernel_ms": [k1, k2], "wrapper_ms": [w1, w2]}
+
+
+def wire_shape(cb) -> dict:
+    """G, K and slot counts of a packed wire: slots the packer resolved
+    and slots the kernel reads (each row's count, capped at K)."""
+    cnsl = cb.wire["cnsl"].astype(np.int64)
+    K = int(cb.wire["k_iota"].shape[0])
+    return {"G": int(cnsl.size), "K": K, "N": int(cb.wire["idx"].size),
+            "slots": int(cb.n_slots.sum()),
+            "row_slots": int(np.minimum(cnsl, K).sum())}
 
 
 def first_pass_breakdown(eng, groups: dict, native) -> dict:
@@ -366,12 +443,18 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--docs", type=int, default=4200,
                     help="documents on the main path (>= 4096)")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time the kernel alone and through its "
+                    "wrapper on the timing and mixed wires, then exit")
+    ap.add_argument("--port-root", type=Path, default=ROOT,
+                    help="checkout to import language_detector_tpu_torch "
+                    "from (default: this one)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(args.port_root.resolve()))
     from language_detector_tpu_torch import native
     from language_detector_tpu_torch.engine_scalar import detect_scalar
     from language_detector_tpu_torch.models.ngram import NgramBatchEngine
@@ -402,8 +485,13 @@ def main() -> int:
     t0 = time.monotonic()
     if not native.available():
         raise RuntimeError("native packer failed to build")
+    occ = {}
+    if hasattr(kernels, "occupancy"):
+        per_sm, sms = kernels.occupancy(dev)
+        occ = {"blocks_per_sm": per_sm, "sms": sms}
     phase("build", kernel_s=round(build_s, 3),
-          packer_s=round(time.monotonic() - t0, 3), lib=str(kernels.LIB))
+          packer_s=round(time.monotonic() - t0, 3), lib=str(kernels.LIB),
+          **occ)
 
     tables = load_tables()
     dt = DeviceTables.from_host(tables, reg, dev)
@@ -416,6 +504,15 @@ def main() -> int:
                         NgramBatchEngine.TINY_BATCH_C_PATH)
     pool = [d for k, g in groups.items() if k <= 64 for d in g]
     tcb, n_timing_docs = timing_wire(pool, native, tables, reg, args.seed)
+    # the mixed batch's own wire: every document packed as one slice
+    mcb = native.pack_chunks_native(docs, tables, reg)
+    if args.kernel_times:
+        out = {}
+        for name, cb in (("timing", tcb), ("mixed", mcb)):
+            out[name] = {**wire_shape(cb), **kernel_and_wrapper_ms(
+                kernels, dt, wire_to_device(cb.wire, dev))}
+        phase("kernel_times", port_root=str(args.port_root), **out)
+        return 0
 
     cases = [(n, w, dt) for n, w in adversarial_wires(args.seed)]
     doctored, clip_wire = s1_clip_case(dt)
@@ -424,6 +521,7 @@ def main() -> int:
         cases.append((f"real-k{k}", native.pack_chunks_native(
             g, tables, reg).wire, dt))
     cases.append(("real-timing-wire", tcb.wire, dt))
+    cases.append(("real-mixed-wire", mcb.wire, dt))
     max_err = 0
     checked = []
     for name, wire, tdt in cases:
@@ -439,8 +537,8 @@ def main() -> int:
                 raise AssertionError(
                     f"kernel != plain on {name} (full={full}): "
                     f"{int((got != want).sum())} words differ")
-        checked.append(f"{name}:G{wire['cnsl'].size}:K"
-                       f"{wire['k_iota'].shape[0]}")
+        checked.append(f"{name}:D{np.shape(wire['cnsl'])[0]}:G"
+                       f"{wire['cnsl'].size}:K{wire['k_iota'].shape[0]}")
     real_k = {int(w["k_iota"].shape[0]) for n, w, _ in cases
               if n.startswith("real-")}
     if real_k != set(K_BUCKETS):
@@ -508,15 +606,22 @@ def main() -> int:
 
     # -- times ----------------------------------------------------------------
     p = wire_to_device(tcb.wire, dev)
+    pm = wire_to_device(mcb.wire, dev)
     G, K = p["cnsl"].numel(), p["K"]
-    call = kernels.prepare(dt, p)
-    kms = device_ms(lambda: kernels.launch(call), 30, 20)
-    wms = device_ms(lambda: kernels.score_chunks_cuda(dt, p), 30, 20)
+    floor = lambda: torch.cuda._sleep(1)                      # noqa: E731
+    lms = device_ms(floor, 30, 20)
+    kw = kernel_and_wrapper_ms(kernels, dt, p)
     pms = device_ms(lambda: score_chunks_plain(dt, p), 10, 3)
+    kw_mixed = kernel_and_wrapper_ms(kernels, dt, pm)
+    # the same grid with every row empty: scan, row bodies and tails
+    # without a slot gathered
+    empty_call = kernels.prepare(dt, {**p, "cnsl": torch.zeros_like(
+        p["cnsl"])})
+    ems = device_ms(lambda: kernels.launch(empty_call), 30, 20)
     pms2 = device_ms(lambda: score_chunks_plain(dt, p), 10, 3)
-    wms2 = device_ms(lambda: kernels.score_chunks_cuda(dt, p), 30, 20)
-    kms2 = device_ms(lambda: kernels.launch(call), 30, 20)
+    lms2 = device_ms(floor, 30, 20)
     bms, bound_by, bound_bytes, bound_ops = bound_ms(dt, p, False)
+    mbms, mbound_by, _, _ = bound_ms(dt, pm, False)
 
     def run_groups():
         for g in groups.values():
@@ -534,16 +639,27 @@ def main() -> int:
             acc.append(time.monotonic() - t0)
     phase("times", G=G, K=K, N=int(p["idx"].numel()),
           slots=int(tcb.n_slots.sum()), timing_docs=n_timing_docs,
-          kernel_ms=[kms, kms2], wrapper_ms=[wms, wms2],
-          plain_ms=[pms, pms2], bound_ms=bms, bound_by=bound_by,
+          kernel_ms=kw["kernel_ms"], wrapper_ms=kw["wrapper_ms"],
+          plain_ms=[pms, pms2], launch_floor_ms=[lms, lms2],
+          kernel_empty_rows_ms=ems,
+          mixed={**wire_shape(mcb), **kw_mixed, "bound_ms": mbms,
+                 "bound_by": mbound_by},
+          bound_ms=bms, bound_by=bound_by,
           bound_bytes=bound_bytes, bound_ops=bound_ops,
           bytes_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
           e2e_s=e2e, e2e_docs_per_s=n_docs / statistics.median(e2e),
           e2e_mixed_s=e2e_mixed,
           e2e_mixed_docs_per_s=len(docs) / statistics.median(e2e_mixed))
     phase("breakdown", **first_pass_breakdown(eng, groups, native))
-    phase("trace", per_bucket=device_busy(run_groups),
-          mixed=device_busy(run_mixed))
+    traced = {"per_bucket": device_busy(run_groups),
+              "mixed": device_busy(run_mixed)}
+    phase("trace", **traced)
+    for name, t in traced.items():
+        if t["other_kernels"] or not t["fused_tote_traced"]:
+            raise AssertionError(
+                f"{name} trace: {t['fused_tote_traced']} fused_tote "
+                f"launches and {t['other_kernels']} other kernels "
+                f"{t['other_kernel_names']}; a dispatch is one launch")
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",
@@ -552,7 +668,7 @@ def main() -> int:
         "replaces": "language_detector_tpu/ops/kernels.py:226",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": statistics.median([kms, kms2]),
+        "ms": statistics.median(kw["kernel_ms"]),
         "plain_ms": statistics.median([pms, pms2]),
         "bound_ms": bms,
         "bound_by": bound_by,

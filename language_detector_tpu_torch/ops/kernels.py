@@ -3,9 +3,10 @@
 `score_chunks(dt, wire, full_out)` is the engine's device step. For CUDA
 tensors it launches csrc/fused_tote.cu (the port of the reference
 package's Pallas kernel ops/kernels.py::_fused_tote_kernel plus its XLA
-gather prologue). For CPU tensors, and only then, it runs the plain
-PyTorch version in ops/score.py. Nothing falls back: a failed build or a
-refused launch raises.
+gather prologue, chunk starts included: the kernel scans them itself, so
+a dispatch is one launch). For CPU tensors, and only then, it runs the
+plain PyTorch version in ops/score.py. Nothing falls back: a failed build
+or a refused launch raises.
 
 The kernel is built with nvcc for sm_90a into build/torch_kernels/ at
 first use (a plain C entry point, loaded with ctypes) and launched on
@@ -23,7 +24,7 @@ from pathlib import Path
 import torch
 
 from .device_tables import DeviceTables
-from .score import chunk_starts, score_chunks_plain
+from .score import score_chunks_plain
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_tote.cu"
@@ -34,6 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches since import (or since the caller last reset it)
 launches = 0
+
+# rows a shard row may hold: the kernel scans chunk starts in int32, and
+# 2^23 rows of at most 255 slots sum below 2^31
+MAX_SHARD_ROWS = 1 << 23
 
 # the wire planes' carriers (ops/score.py wire_to_device): unsigned bits
 # in the signed type of their width
@@ -80,17 +85,32 @@ def _load():
                     LIB.stat().st_mtime < SOURCE.stat().st_mtime:
                 build()
             lib = ctypes.CDLL(str(LIB))
-            fn = lib.ldt_fused_tote
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn.argtypes = [P, L, P, P, P, P, P, P, I, P, P, I, P, I, P, I,
-                           P, I, P, P, P, I, I, I, I, P, P]
+            fn = lib.ldt_fused_tote
+            fn.argtypes = [P, L, P, L, P, P, P, P, I, P, P, I, P, I, P, I,
+                           P, I, P, P, P, I, L, I, I, P, I, P]
             fn.restype = ctypes.c_int
+            occ = lib.ldt_fused_tote_occupancy
+            occ.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I)]
+            occ.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def occupancy(device) -> tuple[int, int]:
+    """(kernel blocks one SM holds at once, the card's SM count): the
+    persistent grid is at most their product, blocks of 8 chunk rows."""
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _load().ldt_fused_tote_occupancy(
+        torch.device(device).index or 0, ctypes.byref(per_sm),
+        ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"fused_tote occupancy query: CUDA error {rc}")
+    return per_sm.value, sms.value
 
 
 def score_chunks_cuda(dt: DeviceTables, p: dict,
@@ -101,10 +121,11 @@ def score_chunks_cuda(dt: DeviceTables, p: dict,
 
 
 def prepare(dt: DeviceTables, p: dict, full_out: bool = False) -> tuple:
-    """Check a wire against dt's device and lay out one launch: the chunk
-    starts (an exclusive cumsum on the card), contiguous planes and the
-    output tensor. Returns (entry-point arguments, output, the tensors
-    the arguments point into); `launch` runs it, as often as asked."""
+    """Check a wire against dt's device and lay out one launch:
+    contiguous planes (no copy for the engine's wires) and the output
+    tensor; the kernel derives the chunk starts from cnsl's [D, Gs]
+    shape. Returns (entry-point arguments, output, the tensors the
+    arguments point into); `launch` runs it, as often as asked."""
     dev = dt.device
     for name, dtype in _WIRE_TYPES.items():
         t = p.get(name)
@@ -115,11 +136,14 @@ def prepare(dt: DeviceTables, p: dict, full_out: bool = False) -> tuple:
                              f"{t.device}; the kernel takes {dtype} on "
                              f"{dev}")
     idx = p["idx"].reshape(-1).contiguous()
-    cstart = chunk_starts(p["cnsl"]).contiguous()
+    Gs = p["cnsl"].shape[-1]            # the starts restart every shard row
     cnsl = p["cnsl"].reshape(-1).contiguous()
     cmeta = p["cmeta"].reshape(-1).contiguous()
     cscript = p["cscript"].reshape(-1).contiguous()
-    G = cstart.shape[0]
+    G = cnsl.shape[0]
+    if Gs > MAX_SHARD_ROWS:
+        raise ValueError(f"a shard row holds {Gs} chunk rows; the kernel "
+                         f"takes at most {MAX_SHARD_ROWS}")
     if not (cmeta.shape[0] == cscript.shape[0] == G):
         raise ValueError(f"chunk planes disagree: cnsl {G}, cmeta "
                          f"{cmeta.shape[0]}, cscript {cscript.shape[0]}")
@@ -141,22 +165,27 @@ def prepare(dt: DeviceTables, p: dict, full_out: bool = False) -> tuple:
     else:
         cprior = prior_tbl = None
         n_prior = 0
+    for tbl in (whack_tbl, prior_tbl):
+        if tbl is not None and tbl.data_ptr() % 8:
+            raise ValueError("whack_tbl / prior_tbl must be 8-byte aligned "
+                             "(the kernel reads 8 languages per load)")
     hint_lp = p["hint_lp"].reshape(-1).contiguous()
     if dt.expected_score.shape[0] != dt.close_set.numel():
         raise ValueError("expected_score and close_set disagree on the "
                          "language count")
     out = torch.empty((G, 2) if full_out else (G,), dtype=torch.int32,
                       device=dev)
-    args = (_ptr(idx), idx.numel(), _ptr(cstart), _ptr(cnsl), _ptr(cmeta),
+    args = (_ptr(idx), idx.numel(), _ptr(cnsl), Gs, _ptr(cmeta),
             _ptr(cscript), _ptr(cwhack), _ptr(whack_tbl), n_whack,
             _ptr(cprior), _ptr(prior_tbl), n_prior,
             _ptr(hint_lp), hint_lp.numel(), _ptr(dt.cat_ind2),
             dt.cat_ind2.numel(), _ptr(dt.lg_prob3), dt.lg_prob3.shape[0],
             _ptr(dt.plang_to_lang), _ptr(dt.expected_score),
             _ptr(dt.close_set), dt.close_set.numel(),
-            G, int(p["K"]), 1 if full_out else 0, _ptr(out))
-    held = (dt, idx, cstart, cnsl, cmeta, cscript, cwhack, whack_tbl,
-            cprior, prior_tbl, hint_lp)
+            G, int(p["K"]), 1 if full_out else 0, _ptr(out),
+            out.device.index or 0)
+    held = (dt, idx, cnsl, cmeta, cscript, cwhack, whack_tbl, cprior,
+            prior_tbl, hint_lp)
     return args, out, held
 
 

@@ -48,7 +48,7 @@ def _assert_kernel_equals_plain(dt, wire):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(16))
+@pytest.mark.parametrize("case", range(len(chip_smoke.ADVERSARIAL)))
 def test_adversarial_grids(cuda_dt, grids, case):
     _assert_kernel_equals_plain(cuda_dt, grids[case][1])
 

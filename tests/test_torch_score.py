@@ -200,6 +200,24 @@ def test_out_of_range_indices_clamp(jax_tables, torch_dt):
     _assert_port_matches(jdt, torch_dt, wire, tables, pallas=False)
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_chunk_starts(jax_tables, torch_dt, shards):
+    """A [D, Gs] wire: chunk starts are an exclusive cumsum that restarts
+    at every shard row (the rule the CUDA kernel's in-kernel scan keeps);
+    the 4-shard wire has an all-empty shard row between full ones."""
+    tables, jdt = jax_tables
+    Gs, K = 12, 16
+    rng = np.random.default_rng(31 + shards)
+    wire = _wire(rng, G=shards * Gs, K=K, hint_frac=0.1, whack=True,
+                 prior=True)
+    cnsl = wire["cnsl"].reshape(shards, Gs)
+    if shards > 2:
+        cnsl[1] = 0
+    wire["cnsl"] = cnsl
+    wire["idx"] = wire["idx"].reshape(shards, -1)
+    _assert_port_matches(jdt, torch_dt, wire, tables)
+
+
 def _doctored(jdt, tdt):
     """qprob rows 100/101 carry 255/63 — enough to push a chunk tote
     past the s1 clip (real tables max out at 12)."""
@@ -316,3 +334,18 @@ def test_score_chunks_cpu_takes_plain_version(torch_dt):
     assert tkernels.launches == before
     assert torch.equal(got, score_chunks_plain(torch_dt, wire,
                                                full_out=True))
+
+
+def test_prepare_passes_shard_rows(torch_dt):
+    """The kernel's entry point takes the shard row length Gs (its scan
+    restarts the chunk starts there), and refuses shard rows long enough
+    to overflow its int32 scan."""
+    wire = _wire(np.random.default_rng(5), G=8, K=8)
+    wire["cnsl"] = wire["cnsl"].reshape(2, 4)
+    args, out, _ = tkernels.prepare(torch_dt, wire_to_device(wire, "cpu"))
+    assert args[3] == 4 and out.shape == (8,)
+    big = wire_to_device(wire, "cpu")
+    big["cnsl"] = torch.zeros((1, tkernels.MAX_SHARD_ROWS + 1),
+                              dtype=torch.uint8)
+    with pytest.raises(ValueError, match="shard row"):
+        tkernels.prepare(torch_dt, big)
