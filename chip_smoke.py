@@ -36,6 +36,28 @@ each printing one line:
             of the wall time, the fused_tote launches the trace saw, and
             every other kernel it saw (there must be none: a dispatch is
             one launch, besides copies)
+  accuracy_parity
+            the engine's other paths on the same mix, run on the CPU
+            (device="cpu") in worker processes while the scalar engine
+            answers their samples: spans (detect_spans over
+            span_subset: the 10-50 KB concatenations and 1,024 other
+            documents; and a SPLIT_BUDGET engine over the
+            concatenations),
+            chunk vectors (detect_batch(return_chunks=True): want_ranges
+            wires, full output), hinted plain text (one CLDHints a call,
+            hint_groups; hint priors off and on: prior planes and whack
+            rows) and HTML pages (html_pages); then the kernel against
+            its plain version on the card, word1 and full output, bit
+            for bit, on every wire those runs sent, and timed with its
+            bound on each path's largest wire
+  accuracy  each of those paths once on the card, under torch.profiler
+            and a host-clock split (host_split): one launch a dispatch,
+            [G, 2] outputs on the chunk path only, prior planes on the
+            priors-on wires only, no other kernel in the trace, wires
+            and answers equal to the CPU run's on every document, and
+            answers equal to the scalar engine's on a seeded sample of
+            256 (scalar_agrees); documents per second, the split and
+            the documents the scalar engine resolved (engine_counts)
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -43,13 +65,17 @@ imports language_detector_tpu_torch from another checkout (an earlier
 commit unpacked with git archive), so two versions of the kernel can be
 timed in turns on one card.
 
-The last two lines are the kernel table as JSON and the run's verdict,
+The last two lines are the kernel table as JSON (its launches count the
+main path's and every accuracy path's) and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
+import multiprocessing
 import os
 import random
 import statistics
@@ -407,10 +433,15 @@ def kernel_and_wrapper_ms(kernels, dt, p: dict) -> dict:
 def wire_shape(cb) -> dict:
     """G, K and slot counts of a packed wire: slots the packer resolved
     and slots the kernel reads (each row's count, capped at K)."""
-    cnsl = cb.wire["cnsl"].astype(np.int64)
-    K = int(cb.wire["k_iota"].shape[0])
-    return {"G": int(cnsl.size), "K": K, "N": int(cb.wire["idx"].size),
-            "slots": int(cb.n_slots.sum()),
+    return {**wire_shape_of(cb.wire), "slots": int(cb.n_slots.sum())}
+
+
+def wire_shape_of(wire: dict) -> dict:
+    """G, K, N and the slots the kernel reads (each row's count, capped
+    at K) of a wire."""
+    cnsl = wire["cnsl"].astype(np.int64)
+    K = int(wire["k_iota"].shape[0])
+    return {"G": int(cnsl.size), "K": K, "N": int(wire["idx"].size),
             "row_slots": int(np.minimum(cnsl, K).sum())}
 
 
@@ -436,6 +467,324 @@ def first_pass_breakdown(eng, groups: dict, native) -> dict:
         retry += int(ep[:len(g), 12].sum())
     t["retry_docs"] = retry
     return t
+
+
+# -- the accuracy paths: hinted, HTML, chunk vectors, spans -----------------
+
+HINT_TLDS = ("fr", "jp", "ru", "id", "br", "de", "my", "rs")
+HINT_ENCODINGS = ("CHINESE_GB", "JAPANESE_EUC_JP", "KOREAN_EUC_KR",
+                  "RUSSIAN_CP1251", "MSFT_CP1252")
+SPLIT_BUDGET = 64            # the small-budget span engine's sub-doc slots
+SPAN_SHORT_DOCS = 1024       # shorter documents on the span path
+
+
+def hint_groups(groups: dict, answer: dict, labels: list, reg, seed: int,
+                size: int = 256) -> list:
+    """The mix as hinted calls, one hint object per call (the API applies
+    one to a whole call): each K bucket's documents sorted by their plain
+    answer and cut into runs of `size`. Run i takes, by i mod 6:
+    content-language set to the run's most common answer (right for most
+    of its docs); content-language set to a corpus label drawn at random
+    (wrong for most); a TLD; an encoding; an explicit language (a random
+    label); or several at once. Returns [(CLDHints keyword arguments,
+    docs)]."""
+    rng = random.Random(seed)
+    out = []
+    for g in groups.values():
+        ordered = sorted(g, key=lambda d: answer[d])
+        for s in range(0, len(ordered), size):
+            run = ordered[s:s + size]
+            common = statistics.mode(answer[d] for d in run)
+            label = rng.choice(labels)
+            kind = len(out) % 6
+            if kind == 0:
+                kw = {"content_language_hint": common}
+            elif kind == 1:
+                kw = {"content_language_hint": label}
+            elif kind == 2:
+                kw = {"tld_hint": rng.choice(HINT_TLDS)}
+            elif kind == 3:
+                kw = {"encoding_hint": rng.choice(HINT_ENCODINGS)}
+            elif kind == 4:
+                kw = {"language_hint": reg.code_to_lang[label]}
+            else:
+                kw = {"content_language_hint": f"{common},{label}",
+                      "tld_hint": rng.choice(HINT_TLDS),
+                      "encoding_hint": rng.choice(HINT_ENCODINGS)}
+            out.append((kw, run))
+    return out
+
+
+def html_pages(docs: list, answer: dict, labels: list, seed: int) -> list:
+    """Each document as a web page: a lang= attribute (its plain answer
+    on half the pages, a random corpus label, mostly wrong, on a quarter,
+    none on the rest), a <style> and a <script> block holding words of
+    another document, and entities around the escaped body."""
+    rng = random.Random(seed)
+    out = []
+    for d in docs:
+        r = rng.random()
+        lang = (answer[d] if r < 0.5 else
+                rng.choice(labels) if r < 0.75 else None)
+        attr = f' lang="{lang}"' if lang else ""
+        other = rng.choice(docs)[:60].replace("<", " ").replace('"', " ")
+        body = d.replace("&", "&amp;").replace("<", "&lt;")
+        out.append(f"<!DOCTYPE html><html{attr}><head><title>{body[:40]}"
+                   f"</title><style>p {{ font-family: \"{other}\" }}"
+                   f"</style><script>var s = \"{other}\";</script></head>"
+                   f"<body><p>{body}</p><p>&copy; 2026 &mdash; caf&eacute;"
+                   " &#8364;5 &amp; more</p></body></html>")
+    return out
+
+
+def answer_rows(results) -> list:
+    """One comparable tuple a result: summary fields, chunk records and
+    span records."""
+    return [(int(r.summary_lang), tuple(r.language3), tuple(r.percent3),
+             tuple(r.normalized_score3), int(r.text_bytes),
+             bool(r.is_reliable),
+             tuple((c.offset, c.bytes, c.lang1) for c in r.chunks or ()),
+             tuple(tuple(x) for x in r.spans or ())) for r in results]
+
+
+def span_subset(docs: list, seed: int) -> list:
+    """The span path's documents: every 10-50 KB concatenation and a
+    seeded SPAN_SHORT_DOCS of the rest, in mix order. The span path
+    resolves the long documents' exceptions in the scalar engine once
+    unsplit and once more split, which took it past 60 s on the whole
+    mix; the cut keeps what splits."""
+    short = [i for i, d in enumerate(docs) if len(d) < 10_000]
+    keep = set(random.Random(seed).sample(short, SPAN_SHORT_DOCS))
+    return [d for i, d in enumerate(docs) if len(d) >= 10_000 or i in keep]
+
+
+def accuracy_paths(docs: list, span_docs: list, long_docs: list,
+                   hgroups: list, html: list, CLDHints) -> dict:
+    """name -> (run, n_docs): run(engines) drives one path through the
+    engines' public entry points (engines: "plain", "priors" with hint
+    priors on, "small" with the SPLIT_BUDGET span budget) and returns its
+    answer_rows in a fixed order."""
+    def spans(E):
+        return (answer_rows(E["plain"].detect_spans(span_docs)) +
+                answer_rows(E["small"].detect_spans(long_docs)))
+
+    def chunks(E):
+        return answer_rows(E["plain"].detect_batch(docs, return_chunks=True))
+
+    def hinted(key):
+        def run(E):
+            out = []
+            for kw, g in hgroups:
+                out += answer_rows(E[key].detect_batch(
+                    g, hints=CLDHints(**kw)))
+            return out
+        return run
+
+    def html_run(E):
+        return answer_rows(E["plain"].detect_batch(html,
+                                                   is_plain_text=False))
+
+    n_hinted = sum(len(g) for _, g in hgroups)
+    return {"spans": (spans, len(span_docs) + len(long_docs)),
+            "chunks": (chunks, len(docs)),
+            "hinted_priors_off": (hinted("plain"), n_hinted),
+            "hinted_priors_on": (hinted("priors"), n_hinted),
+            "html": (html_run, len(html))}
+
+
+def cjk_run(text: str) -> bool:
+    """A document of unified ideographs only (the mix's CJK runs)."""
+    return bool(text) and all("\u4e00" <= c <= "\u9fff" for c in text)
+
+
+def scalar_agrees(got: tuple, want: tuple, base_doc: str) -> bool:
+    """An engine answer row against the scalar engine's. On CJK runs the
+    reference's packer may give one character to the neighbouring chunk
+    where the scalar engine does not (the JAX engine does the same;
+    ROADMAP queue C): the tote scores are equal but chunk bytes, and so
+    reliability, percentages and normalized scores, may differ. There
+    only the summary language and the span boundaries and codes must
+    agree; everywhere else the whole row."""
+    if got == want:
+        return True
+    return cjk_run(base_doc) and got[0] == want[0] and \
+        [x[:3] for x in got[7]] == [x[:3] for x in want[7]]
+
+
+def scalar_oracles(docs: list, span_docs: list, long_docs: list,
+                   hgroups: list, html: list, tables, reg, CLDHints,
+                   budget: int) -> dict:
+    """name -> (oracle, base docs): oracle(i) is the scalar engine's
+    answer for item i of the path's answer list and base docs[i] the
+    plain document behind it; None where the scalar engine has no
+    counterpart (hint priors exist only on the device path)."""
+    from language_detector_tpu_torch.engine_scalar import (
+        detect_scalar, detect_scalar_spans)
+    hinted = [(kw, d) for kw, g in hgroups for d in g]
+
+    def spans(i):
+        if i < len(span_docs):
+            return detect_scalar_spans(span_docs[i], tables, reg, 0,
+                                       budget)
+        return detect_scalar_spans(long_docs[i - len(span_docs)], tables,
+                                   reg, 0, SPLIT_BUDGET)
+
+    def hint(i):
+        kw, d = hinted[i]
+        return detect_scalar(d, tables, reg, hints=CLDHints(**kw))
+
+    return {"spans": (spans, span_docs + long_docs),
+            "chunks": (lambda i: detect_scalar(docs[i], tables, reg,
+                                               want_chunks=True), docs),
+            "hinted_priors_off": (hint, [d for _, d in hinted]),
+            "hinted_priors_on": None,
+            "html": (lambda i: detect_scalar(html[i], tables, reg,
+                                             is_plain_text=False), docs)}
+
+
+def engine_set(tables, reg, device) -> dict:
+    """The accuracy paths' engines on one device: "plain" (hint priors
+    off, span budget 1024), "priors" (hint priors on) and "small" (span
+    budget SPLIT_BUDGET)."""
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    return {"plain": NgramBatchEngine(tables, reg, device=device,
+                                      hint_priors=False,
+                                      longdoc_chunk_slots=1024),
+            "priors": NgramBatchEngine(tables, reg, device=device,
+                                       hint_priors=True,
+                                       longdoc_chunk_slots=1024),
+            "small": NgramBatchEngine(tables, reg, device=device,
+                                      hint_priors=False,
+                                      longdoc_chunk_slots=SPLIT_BUDGET)}
+
+
+def engine_counts(engines) -> dict:
+    """The engines' counters, summed: device dispatches, and documents
+    resolved by the scalar engine (packer fallbacks; gate failures). On
+    the span path they count whole documents only, not sub-documents."""
+    snaps = [e.stats_snapshot() for e in engines]
+    return {k: sum(s[k] for s in snaps) for k in (
+        "device_dispatches", "fallback_docs", "scalar_recursion_docs")}
+
+
+def scalar_samples(paths: dict, n_span_docs: int, seed: int) -> dict:
+    """name -> the seeded sample of items held against the scalar engine
+    (256 a path, and 4 of the small-budget span items besides)."""
+    out = {}
+    for name, (_, n_items) in paths.items():
+        if name == "hinted_priors_on":   # priors exist only on the device
+            continue
+        rng = random.Random(seed)
+        out[name] = rng.sample(range(n_items), 256)
+        if name == "spans":
+            out[name] += rng.sample(range(n_span_docs, n_items), 4)
+    return out
+
+
+def cpu_reference(name: str, inputs: tuple) -> tuple:
+    """Worker process: one accuracy path on the CPU (device="cpu", the
+    plain scorer); returns its answers and the dispatches it made."""
+    torch.set_num_threads(2)
+    from language_detector_tpu_torch.hints import CLDHints
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import load_tables
+    run, _ = accuracy_paths(*inputs, CLDHints)[name]
+    engines = engine_set(load_tables(), reg, "cpu")
+    with DispatchRecorder(engines.values()) as rec:
+        answers = run(engines)
+    return answers, rec.records
+
+
+def scalar_reference(samples: dict, inputs: tuple) -> dict:
+    """Worker process: the scalar engine's answers for the samples,
+    name -> [(item, answer row, the plain document behind it)]."""
+    from language_detector_tpu_torch.hints import CLDHints
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import load_tables
+    oracles = scalar_oracles(*inputs, load_tables(), reg, CLDHints, 1024)
+    out = {}
+    for name, items in samples.items():
+        oracle, base = oracles[name]
+        out[name] = [(i, answer_rows([oracle(i)])[0], base[i])
+                     for i in items]
+    return out
+
+
+def wires_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+class DispatchRecorder:
+    """Records every dispatch the engines make inside the block: the wire
+    (numpy, as packed), whether full output was asked for, and the
+    output's shape."""
+
+    def __init__(self, engines):
+        self.engines = list(engines)
+        self.records: list = []
+
+    def __enter__(self):
+        for eng in self.engines:
+            def launch(cb, full_out=False, _orig=eng._launch):
+                fut = _orig(cb, full_out)
+                self.records.append({"wire": cb.wire, "full_out": full_out,
+                                     "out_shape": tuple(fut.out.shape)})
+                return fut
+            eng._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        for eng in self.engines:
+            del eng._launch
+        return False
+
+
+@contextlib.contextmanager
+def host_split(ngram):
+    """Host-clock split of the engine calls made inside the block, by
+    wrapping the names models/ngram.py calls: pack, device (wire copy
+    and launch, then the wait and readback), epilogue, input preparation
+    (hints, prior planes, HTML cleaning), host records (result-vector
+    records and merges, span splits and records) and scalar resolution.
+    Yields the dict of seconds it fills."""
+    acc: dict = {}
+    keys = {"pack_s": [(ngram.NgramBatchEngine, "_pack")],
+            "device_s": [(ngram.NgramBatchEngine, "_launch"),
+                         (ngram.DeviceResult, "__array__")],
+            "epilogue_s": [(ngram.native, "epilogue_flat_native")],
+            "prep_s": [(ngram, "apply_hints"), (ngram, "prior_vector"),
+                       (ngram, "clean_html")],
+            "host_records_s": [(ngram, "build_doc_records"),
+                               (ngram, "chunks_for_doc"),
+                               (ngram, "merge_longdoc_chunks"),
+                               (ngram, "split_for_spans"),
+                               (ngram, "span_coverage_records")],
+            "scalar_s": [(ngram, "detect_scalar"),
+                         (ngram, "detect_scalar_spans")]}
+    patched = []
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return call
+
+    try:
+        for key, owners in keys.items():
+            acc[key] = 0.0
+            for owner, name in owners:
+                fn = owner.__dict__[name] if isinstance(owner, type) \
+                    else getattr(owner, name)
+                patched.append((owner, name, fn))
+                setattr(owner, name, timed(fn, key))
+        yield acc
+    finally:
+        for owner, name, fn in reversed(patched):
+            setattr(owner, name, fn)
 
 
 def main() -> int:
@@ -660,6 +1009,139 @@ def main() -> int:
                 f"{name} trace: {t['fused_tote_traced']} fused_tote "
                 f"launches and {t['other_kernels']} other kernels "
                 f"{t['other_kernel_names']}; a dispatch is one launch")
+
+    # -- accuracy paths: hinted, HTML, chunk vectors, spans ------------------
+    from language_detector_tpu_torch.hints import CLDHints
+    from language_detector_tpu_torch.models import ngram
+    labels = sorted({ln.split("\t", 1)[0] for ln in
+                     open(DATA_DIR / "eval_corpus.tsv", encoding="utf-8")})
+    answer = dict(flat)
+    long_docs = [d for d in docs if len(d) >= 10_000]
+    span_docs = span_subset(docs, args.seed)
+    inputs = (docs, span_docs, long_docs,
+              hint_groups(groups, answer, labels, reg, args.seed),
+              html_pages(docs, answer, labels, args.seed))
+    paths = accuracy_paths(*inputs, CLDHints)
+    samples = scalar_samples(paths, len(span_docs), args.seed)
+    # the CPU run of every path and the scalar engine's answers for the
+    # samples, in worker processes: host work that no timing reads
+    t0 = time.monotonic()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(paths) + 1,
+                                                mp_context=ctx) as pool:
+        cpu_futs = {name: pool.submit(cpu_reference, name, inputs)
+                    for name in paths}
+        scalar_fut = pool.submit(scalar_reference, samples, inputs)
+        cpu_ref = {name: f.result() for name, f in cpu_futs.items()}
+        scalar_ref = scalar_fut.result()
+    cpu_s = time.monotonic() - t0
+
+    # the kernel against its plain version on every wire those paths sent
+    acc_err = 0
+    par = {}
+    for name, (_, recs) in cpu_ref.items():
+        for r in recs:
+            w = wire_to_device(r["wire"], dev)
+            for full in (False, True):
+                got = kernels.score_chunks(dt, w, full_out=full)
+                want = score_chunks_plain(dt, w, full_out=full)
+                torch.cuda.synchronize()
+                if got.numel():
+                    acc_err = max(acc_err, int(
+                        (got.to(torch.int64) - want.to(torch.int64))
+                        .abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"kernel != plain on a {name} wire (full={full}, "
+                        f"K={w['K']}): {int((got != want).sum())} words "
+                        "differ")
+        big = max(recs, key=lambda r: r["wire"]["cnsl"].size)
+        p = wire_to_device(big["wire"], dev)
+        full = big["full_out"]
+        call = kernels.prepare(dt, p, full)
+        kms = device_ms(lambda: kernels.launch(call), 30, 20)
+        plain_ms = device_ms(lambda: score_chunks_plain(dt, p, full), 5, 2)
+        b_ms, b_by, _, _ = bound_ms(dt, p, full)
+        par[name] = {
+            "wires": len(recs),
+            "K": sorted({int(r["wire"]["k_iota"].shape[0]) for r in recs}),
+            "prior_wires": sum("cprior" in r["wire"] for r in recs),
+            "whack_wires": sum(r["wire"]["cwhack"].shape[-1] > 1
+                               for r in recs),
+            "full_out_wires": sum(r["full_out"] for r in recs),
+            "largest": {**wire_shape_of(big["wire"]), "full_out": full,
+                        "prior": "cprior" in big["wire"],
+                        "kernel_ms": kms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}}
+    if not par["hinted_priors_on"]["prior_wires"] or any(
+            par[n]["prior_wires"] for n in par if n != "hinted_priors_on"):
+        raise AssertionError(f"prior planes on the wrong wires: {par}")
+    if par["chunks"]["full_out_wires"] != par["chunks"]["wires"]:
+        raise AssertionError("the chunk path asked for word1 only")
+    phase("accuracy_parity", max_abs_err=acc_err, cpu_reference_s=cpu_s,
+          paths=par)
+    max_err = max(max_err, acc_err)
+
+    # each path once on the card, traced, with its host-clock split
+    e_dev = engine_set(tables, reg, dev)
+    dev_answers: dict = {}
+    for name, (run, n_items) in paths.items():
+        before = engine_counts(e_dev.values())
+        box: dict = {}
+        kernels.launches = 0
+        with host_split(ngram) as split, \
+                DispatchRecorder(e_dev.values()) as rec:
+            tr = device_busy(lambda: box.setdefault("got", run(e_dev)))
+        n_launch = kernels.launches
+        launches += n_launch
+        got = dev_answers[name] = box["got"]
+        after = engine_counts(e_dev.values())
+        counts = {k: after[k] - before[k] for k in after}
+        dispatches = counts.pop("device_dispatches")
+        if not (n_launch == len(rec.records) == dispatches ==
+                tr["fused_tote_traced"] > 0) or tr["other_kernels"]:
+            raise AssertionError(
+                f"{name}: {n_launch} launches, {len(rec.records)} recorded "
+                f"and {dispatches} counted dispatches, "
+                f"{tr['fused_tote_traced']} traced fused_tote launches and "
+                f"{tr['other_kernels']} other kernels "
+                f"{tr['other_kernel_names']}; want one launch a dispatch")
+        want_2d = name == "chunks"
+        if any((len(r["out_shape"]) == 2) != want_2d for r in rec.records):
+            raise AssertionError(f"{name}: output shapes "
+                                 f"{[r['out_shape'] for r in rec.records]}")
+        cpu_answers, cpu_recs = cpu_ref[name]
+        if len(cpu_recs) != len(rec.records) or any(
+                not wires_equal(a["wire"], b["wire"])
+                for a, b in zip(cpu_recs, rec.records)):
+            raise AssertionError(f"{name}: the card's wires differ from the "
+                                 "CPU run's")
+        bad = [i for i, (a, b) in enumerate(zip(got, cpu_answers))
+               if a != b]
+        if bad or not len(got) == len(cpu_answers) == n_items:
+            raise AssertionError(f"{name}: {len(bad)} answers differ from "
+                                 f"the CPU run, first {bad[:5]}")
+        cjk_rows_differ = 0
+        for i, want_i, base in scalar_ref.get(name, ()):
+            if not scalar_agrees(got[i], want_i, base):
+                raise AssertionError(f"{name}: the scalar engine disagrees "
+                                     f"on item {i}")
+            cjk_rows_differ += got[i] != want_i
+        split = {**split, "other_s": tr["wall_s"] - sum(split.values())}
+        phase("accuracy", path=name, docs=n_items, launches=n_launch,
+              dispatches=dispatches, exception_docs=counts,
+              launch_k=[int(r["wire"]["k_iota"].shape[0])
+                        for r in rec.records],
+              out_shapes=sorted({str(r["out_shape"]) for r in rec.records}),
+              prior_wires=sum("cprior" in r["wire"] for r in rec.records),
+              cpu_equal=True,
+              differ_from_priors_off=(sum(
+                  a != b for a, b in zip(got, dev_answers[
+                      "hinted_priors_off"]))
+                  if name == "hinted_priors_on" else None),
+              scalar_sample=len(scalar_ref.get(name, ())) or None,
+              scalar_cjk_rows_differ=cjk_rows_differ,
+              docs_per_s=n_items / tr["wall_s"], split=split, trace=tr)
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",

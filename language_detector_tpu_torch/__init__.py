@@ -10,7 +10,10 @@ scores with the plain PyTorch version (ops/score.py).
 Public API:
     detect(text)                 -> DetectionResult (top-3 + reliability)
     detect_batch(texts)          -> list[DetectionResult]
-    LanguageDetector             -> configurable detector object
+    LanguageDetector             -> configurable detector object (also
+                                    detect_spans, detect_bytes)
+    CLDHints                     -> detection hints
+    detect_language_version()    -> code and table version string
     load_tables() / ScoringTables
 """
 
@@ -23,6 +26,7 @@ from .registry import (  # noqa: F401
 )
 from .tables import ScoringTables, load_tables  # noqa: F401
 from .detector import (LanguageDetector, DetectionResult, detect,  # noqa: F401
-                       detect_batch)
+                       detect_batch, detect_language_version)
+from .hints import CLDHints  # noqa: F401
 
 __version__ = "0.4.0"

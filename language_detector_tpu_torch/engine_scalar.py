@@ -1047,8 +1047,8 @@ def detect_scalar(text: str, tables: ScoringTables | None = None,
     tables = tables or load_tables()
     reg = reg or default_registry
     if _hint_boosts is None and (hints is not None or not is_plain_text):
-        raise NotImplementedError(
-            "hints and HTML input are not ported to the torch package yet")
+        from .hints import apply_hints
+        _hint_boosts = apply_hints(text, is_plain_text, hints, tables, reg)
     if _vec_src is None:
         orig_text = text
         html_offsets = None

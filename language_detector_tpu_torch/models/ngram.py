@@ -18,13 +18,16 @@ gate (impl.cc:1978-1991) re-score as a batch with the recursion flags.
 Answers equal the reference package's engine and `detect_scalar` on every
 document.
 
-This engine serves plain-text batches through `detect_batch`,
-`detect_codes` and `detect_many`, one slice at a time. Hints, HTML input
-and per-range chunk vectors are not ported yet and raise
-NotImplementedError.
+Every surface runs one slice at a time through the same kernel:
+plain-text `detect_batch` / `detect_codes` / `detect_many`; hinted and
+HTML batches (hint boosts, close-set whacks and, with hint priors on,
+per-document prior planes ride the wire); per-range chunk vectors (a
+want_ranges pack and the kernel's full-output word); and per-span
+verdicts (`detect_spans`: split sub-documents in one flat pack).
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -33,12 +36,19 @@ import torch
 from .. import native
 from ..engine_scalar import (FLAG_BEST_EFFORT, FLAG_FINISH, FLAG_REPEATS,
                              FLAG_SHORT, FLAG_SQUEEZE, FLAG_TOP40,
-                             FLAG_USE_WORDS, ScalarResult, detect_scalar,
-                             result_from_epilogue_row as _result_from_row)
+                             FLAG_USE_WORDS, SPAN_SPLIT_SLOTS, ScalarResult,
+                             detect_scalar, detect_scalar_spans,
+                             result_from_epilogue_row as _result_from_row,
+                             span_coverage_records, split_for_spans)
+from ..hints import apply_hints, prior_vector
 from ..ops import kernels
-from ..ops.device_tables import DeviceTables
-from ..ops.score import unpack_chunks_out, wire_to_device
+from ..ops.device_tables import DeviceTables, host_tables
+from ..ops.score import (unpack_chunks_out, unpack_chunks_out2,
+                         wire_to_device)
+from ..preprocess.html import clean_html
 from ..registry import Registry, registry as default_registry
+from ..result_vector import (build_doc_records, chunks_for_doc,
+                             merge_longdoc_chunks)
 from ..tables import ScoringTables, load_tables
 
 # Flags the device path supports. FINISH/BEST_EFFORT alter only the
@@ -62,9 +72,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to language_detector_tpu_torch yet")
+_FALSE_WORDS = frozenset(("", "0", "false", "no", "off"))
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    """A boolean environment setting: unset means `default`, and any
+    value but "", 0, false, no or off (any case) means on."""
+    v = os.environ.get(name)
+    return default if v is None else v.strip().lower() not in _FALSE_WORDS
+
+
+def _env_int(name: str, default: int) -> int:
+    """An integer environment setting: unset, empty or unparsable means
+    `default`; "8e3"-style floats are accepted and truncated."""
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    try:
+        return int(v) if v.lstrip("+-").isdigit() else int(float(v))
+    except ValueError:
+        return default
 
 
 class DeviceResult:
@@ -103,17 +130,31 @@ class NgramBatchEngine:
     def __init__(self, tables: ScoringTables | None = None,
                  reg: Registry | None = None, flags: int = 0,
                  device=None, max_slots: int = 1 << 17,
-                 max_chunks: int = 1 << 14):
+                 max_chunks: int = 1 << 14,
+                 hint_priors: bool | None = None,
+                 longdoc_chunk_slots: int | None = None):
         """device: None = "cuda" (raises without CUDA); "cpu" scores
         with the plain PyTorch version. max_slots / max_chunks:
         PER-DOCUMENT packer budgets; a document exceeding either falls
-        back to the scalar engine."""
+        back to the scalar engine. hint_priors: hinted batches also
+        carry per-document prior planes (hints.prior_vector) that the
+        kernel adds to languages a chunk already scored, before its
+        top-2; None reads LDT_HINTS (default off). longdoc_chunk_slots:
+        the sub-document slot budget `detect_spans` splits at; None
+        reads LDT_LONGDOC_CHUNK_SLOTS (default 1024), 0 means the scalar
+        engine's SPAN_SPLIT_SLOTS."""
         self.device = resolve_device(device)
         self.tables = tables or load_tables()
         self.reg = reg or default_registry
         self.flags = flags
         self.max_slots = max_slots
         self.max_chunks = max_chunks
+        self.hint_priors_enabled = (_env_bool("LDT_HINTS")
+                                    if hint_priors is None
+                                    else bool(hint_priors))
+        self.longdoc_chunk_slots = (
+            _env_int("LDT_LONGDOC_CHUNK_SLOTS", 1024)
+            if longdoc_chunk_slots is None else longdoc_chunk_slots)
         if not native.available():
             raise RuntimeError(
                 "batched engine requires the native packer "
@@ -134,16 +175,22 @@ class NgramBatchEngine:
 
     # -- device dispatch ----------------------------------------------------
 
-    def _launch(self, cb) -> DeviceResult:
-        """Copy the wire to the device and launch the scorer; returns
-        before the kernel finishes."""
+    def _launch(self, cb, full_out: bool = False) -> DeviceResult:
+        """Copy the wire to the device and launch the scorer (word1, or
+        [G, 2] words when full_out); returns before the kernel
+        finishes."""
         wire = wire_to_device(cb.wire, self.device)
-        return DeviceResult(kernels.score_chunks(self.dt, wire))
+        return DeviceResult(kernels.score_chunks(self.dt, wire, full_out))
 
     def _fetch_rows(self, cb, fut) -> np.ndarray:
         """Wait for a launch and unpack its words against the wire's
         chunk meta into the flat [G, 5] rows the epilogue reads."""
         return unpack_chunks_out(np.asarray(fut), cb.wire["cmeta"])
+
+    def score_chunk_batch(self, cb) -> np.ndarray:
+        """Score a packed ChunkBatch; returns the flat [G, 5]
+        chunk-summary rows on the host (test/debug seam)."""
+        return self._fetch_rows(cb, self._launch(cb))
 
     # -- public API ---------------------------------------------------------
 
@@ -152,22 +199,215 @@ class NgramBatchEngine:
                      return_chunks: bool = False) -> list:
         """ScalarResult-compatible results, one per text (EpilogueResult
         views for device-scored docs, ScalarResults for scalar-path
-        docs)."""
-        if hints is not None:
-            _not_ported("hinted detection")
-        if not is_plain_text:
-            _not_ported("HTML input (is_plain_text=False)")
-        if return_chunks:
-            _not_ported("per-range chunk vectors (return_chunks=True)")
+        docs). hints: optional hints.CLDHints applied to every document
+        of the call; is_plain_text=False strips HTML on the host and
+        scans lang= tags into per-document hints; both stay on the
+        device path. return_chunks fills each result's per-byte-range
+        vector through a want_ranges pack and the full-output word
+        (hinted or HTML chunk vectors, whose offset maps live in the
+        scalar engine, resolve there)."""
         if not texts:
             return []
         if self.flags & ~_DEVICE_OK_FLAGS:
-            return [detect_scalar(t, self.tables, self.reg, self.flags)
+            return [detect_scalar(t, self.tables, self.reg, self.flags,
+                                  hints=hints,
+                                  is_plain_text=is_plain_text,
+                                  want_chunks=return_chunks)
                     for t in texts]
+        if return_chunks:
+            if hints is not None or not is_plain_text:
+                return [detect_scalar(t, self.tables, self.reg,
+                                      self.flags, hints=hints,
+                                      is_plain_text=is_plain_text,
+                                      want_chunks=True)
+                        for t in texts]
+            return self._detect_with_chunks(texts)
+        if hints is not None or not is_plain_text:
+            return self._detect_hinted(texts, hints, is_plain_text)
         if sum(len(t) for t in texts) > self.DISPATCH_CHAR_BUDGET:
             return self.detect_many(texts, batch_size=len(texts))
         cb, fut = self._dispatch(texts)
         return self._finish(texts, cb, fut)
+
+    def _detect_with_chunks(self, texts: list[str]) -> list:
+        """Batched detection WITH per-range chunk vectors: a want_ranges
+        pack (per-slot / per-chunk offset sidecars) and one full-output
+        launch per slice (word2: lang2, rd, rs), then the host replays
+        the scalar vector path exactly: boundary sharpening over the
+        resolved hit lanes (it shifts the epilogue's chunk byte weights,
+        as the reference's vector mode does), the shared record merge,
+        and the scalar engine for any doc whose offsets cannot map back
+        (squeeze, fallback, gate retry)."""
+        cat_ind2 = host_tables(self.tables, self.reg).cat_ind2
+        out: list = []
+        for chunk in self._slices(texts, 16384):
+            cb = self._pack(chunk, want_ranges=True)
+            full = np.asarray(self._launch(cb, full_out=True))
+            rows = unpack_chunks_out(full[..., 0], cb.wire["cmeta"])
+            rows2 = unpack_chunks_out2(full[..., 1])
+            cnsl2 = cb.wire["cnsl"].astype(np.int64)
+            cstart_flat = (np.cumsum(cnsl2, axis=-1) - cnsl2).reshape(-1)
+            # records first: sharpening edits rows' byte weights, which
+            # the epilogue must consume (vector-mode DocTote semantics)
+            doc_recs = [build_doc_records(b, cb, rows, rows2,
+                                          cstart_flat, cat_ind2,
+                                          self.tables, self.reg)
+                        for b in range(len(chunk))]
+            ep = native.epilogue_flat_native(rows, cb, self.flags,
+                                             self.reg)
+            n_fb = n_retry = 0
+            for b, text in enumerate(chunk):
+                if doc_recs[b] is None or ep[b, 12]:
+                    if cb.fallback[b]:
+                        n_fb += 1
+                    else:
+                        n_retry += 1
+                    out.append(detect_scalar(
+                        text, self.tables, self.reg, self.flags,
+                        want_chunks=True))
+                    continue
+                res = _result_from_row(ep[b])
+                res.chunks = chunks_for_doc(text, doc_recs[b], self.reg)
+                out.append(res)
+            with self._stats_lock:
+                self.stats["batches"] += 1
+                self.stats["device_dispatches"] += 1
+                self.stats["fallback_docs"] += n_fb
+                self.stats["scalar_recursion_docs"] += n_retry
+        return out
+
+    def detect_spans(self, texts: list[str]) -> list:
+        """Per-span language verdicts: each text splits on script-span
+        boundaries (engine_scalar.split_for_spans, the only exact split
+        points), every sub-document scores as its own row range of one
+        flat pack, the MERGED epilogue yields the whole-document summary
+        (identical to the unsplit answer) and the UNMERGED per-sub-doc
+        epilogue yields the span verdicts. Results are
+        ScalarResult-compatible with .spans = [(byte_offset, byte_len,
+        code, pct, reliable)] tiling the document's bytes
+        (engine_scalar.span_coverage_records). A sub-doc the packer
+        flagged or that failed the gate resolves its span through the
+        scalar engine, and a merged-doc exception resolves the whole
+        summary there, so the records equal detect_scalar_spans on
+        every document."""
+        if not texts:
+            return []
+        budget = self.longdoc_chunk_slots or SPAN_SPLIT_SLOTS
+        if self.flags & ~_DEVICE_OK_FLAGS:
+            return [detect_scalar_spans(t, self.tables, self.reg,
+                                        self.flags, budget)
+                    for t in texts]
+        out: list = []
+        for chunk in self._slices(texts, 16384):
+            out.extend(self._detect_spans_slice(chunk, budget))
+        return out
+
+    def _detect_spans_slice(self, texts: list[str],
+                            budget: int) -> list:
+        subs_all: list = []
+        groups: list = []
+        bounds_all: list = []
+        for t in texts:
+            subs, bounds = split_for_spans(t, self.tables, budget)
+            groups.append((len(subs_all), len(subs)))
+            subs_all.extend(subs)
+            bounds_all.append(bounds)
+        cb = self._pack(subs_all)
+        rows = self._fetch_rows(cb, self._launch(cb))
+        sub_ep = native.epilogue_flat_native(rows, cb, self.flags,
+                                             self.reg)
+        mrows, mcb, _ = merge_longdoc_chunks(rows, cb, groups,
+                                             keep_spans=True)
+        ep = native.epilogue_flat_native(mrows, mcb, self.flags,
+                                         self.reg)
+        results: list = []
+        n_fb = 0
+        for j, text in enumerate(texts):
+            s, n = groups[j]
+            verdicts = []
+            for i in range(s, s + n):
+                row = sub_ep[i]
+                if cb.fallback[i] or cb.squeezed[i] or row[12]:
+                    r = detect_scalar(subs_all[i], self.tables,
+                                      self.reg, self.flags)
+                    verdicts.append((self.reg.code(r.summary_lang),
+                                     int(r.percent3[0]),
+                                     bool(r.is_reliable)))
+                else:
+                    verdicts.append((self.reg.code(int(row[0])),
+                                     int(row[4]), bool(row[11])))
+            if mcb.fallback[j] or mcb.squeezed[j] or ep[j, 12]:
+                n_fb += 1
+                res = detect_scalar(text, self.tables, self.reg,
+                                    self.flags)
+            else:
+                res = _result_from_row(ep[j])
+            res.spans = span_coverage_records(text, bounds_all[j],
+                                              verdicts)
+            results.append(res)
+        with self._stats_lock:
+            self.stats["batches"] += 1
+            self.stats["device_dispatches"] += 1
+            self.stats["fallback_docs"] += n_fb
+        return results
+
+    def _detect_hinted(self, texts: list[str], hints,
+                       is_plain_text: bool) -> list:
+        """Hinted / HTML detection on the device path: hint boosts ride
+        the wire as extra chunk slots (the hint_lp window), whacks as
+        per-chunk mask rows, priors (when enabled) as per-chunk prior
+        planes, and HTML cleans on the host before packing (the scalar
+        engine does the same pre-pass, so segmentation sees identical
+        bytes). Slices respect the plain path's content-volume budget
+        and run one after another: pipelining them comes with the
+        dispatch pipeline (pipeline depth > 1). Gate-failing and
+        fallback docs run the scalar engine with the ORIGINAL text and
+        hints."""
+        if is_plain_text:
+            # without HTML there is no per-document hint input (lang=
+            # scanning is the only one): one HintBoosts serves the batch
+            shared_hb = apply_hints("", True, hints, self.tables,
+                                    self.reg)
+            hbs = [shared_hb] * len(texts)
+            clean = texts
+        else:
+            hbs = [apply_hints(t, False, hints, self.tables, self.reg)
+                   for t in texts]
+            clean = [clean_html(t, self.tables)[0] for t in texts]
+        # densify each doc's boosts into the prior plane the kernel adds
+        # before its top-2; the plain-text batch shares one plane (same
+        # HintBoosts), deduped to one table row by the pack
+        prs = ([prior_vector(hb, self.tables) for hb in hbs]
+               if self.hint_priors_enabled else None)
+        out: list = []
+        for s, e in self._slice_bounds([len(t) for t in clean], 16384):
+            cb = self._pack(clean[s:e], hint_boosts=hbs[s:e],
+                            hint_priors=prs[s:e] if prs is not None
+                            else None)
+            rows = self._fetch_rows(cb, self._launch(cb))
+            ep = native.epilogue_flat_native(rows, cb, self.flags,
+                                             self.reg)
+            # both exception classes (packer fallback, gate failure)
+            # resolve through the scalar engine with the ORIGINAL text
+            # and hints: the batched retry pass carries no hint state
+            n_fb = n_retry = 0
+            for b, text in enumerate(texts[s:e]):
+                if ep[b, 12]:
+                    if cb.fallback[b]:
+                        n_fb += 1
+                    else:
+                        n_retry += 1
+                    out.append(detect_scalar(
+                        text, self.tables, self.reg, self.flags,
+                        hints=hints, is_plain_text=is_plain_text))
+                else:
+                    out.append(EpilogueResult(ep[b].tolist()))
+            with self._stats_lock:
+                self.stats["batches"] += 1
+                self.stats["device_dispatches"] += 1
+                self.stats["fallback_docs"] += n_fb
+                self.stats["scalar_recursion_docs"] += n_retry
+        return out
 
     def detect_many(self, texts: list[str],
                     batch_size: int = 16384) -> list:
@@ -251,12 +491,18 @@ class NgramBatchEngine:
         if start < len(lengths):
             yield start, len(lengths)
 
-    def _pack(self, texts: list[str], flags: int | None = None):
-        """Pack only (no device launch)."""
+    def _pack(self, texts: list[str], flags: int | None = None,
+              hint_boosts: list | None = None,
+              hint_priors: list | None = None,
+              want_ranges: bool = False):
+        """Pack only (no device launch). Without hints the wire is the
+        plain one: no whack rows, no prior planes."""
         fl = self.flags if flags is None else flags
         return native.pack_chunks_native(
             texts, self.tables, self.reg, flags=fl,
-            l_doc=self.max_slots, c_doc=self.max_chunks)
+            l_doc=self.max_slots, c_doc=self.max_chunks,
+            hint_boosts=hint_boosts, hint_priors=hint_priors,
+            want_ranges=want_ranges)
 
     def _dispatch(self, texts: list[str], flags: int | None = None):
         """Pack + launch; returns (ChunkBatch, DeviceResult)."""
@@ -363,7 +609,9 @@ class EpilogueResult:
     (a plain 14-int list). Field extraction happens on attribute
     access."""
     __slots__ = ("_r",)
-    chunks = None  # ResultChunk vectors come from the scalar engine only
+    # chunk vectors and spans come back as ScalarResults
+    # (_detect_with_chunks, detect_spans)
+    chunks = None
     spans = None
 
     def __init__(self, row: list):

@@ -7,7 +7,9 @@ skip on a host without a card. Run them on one with
 
 They import only torch, numpy and the port (no jax): the adversarial
 grids come from chip_smoke.py, which runs the same comparison and the
-main path end to end.
+main path end to end. The real-path wires are the ones the engine sends
+on its hinted (prior planes and whack rows), HTML, chunk-vector (full
+output) and span paths, recorded from a CPU engine.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 import chip_smoke
 from language_detector_tpu_torch import native
+from language_detector_tpu_torch.hints import CLDHints
+from language_detector_tpu_torch.models.ngram import NgramBatchEngine
 from language_detector_tpu_torch.ops import kernels
 from language_detector_tpu_torch.ops.device_tables import DeviceTables
 from language_detector_tpu_torch.ops.score import (score_chunks_plain,
@@ -75,3 +79,42 @@ def test_cuda_tensor_never_reaches_plain_path(cuda_dt, grids):
     wire = wire_to_device(grids[0][1], "cuda")
     with pytest.raises(ValueError):
         kernels.score_chunks(cpu_dt, wire)
+
+
+def _eval_docs() -> list[str]:
+    return [ln.split("\t", 1)[1].rstrip("\n") for ln in
+            open(DATA_DIR / "eval_corpus.tsv", encoding="utf-8")]
+
+
+# path -> (engine arguments, the call that drives the path)
+REAL_PATHS = {
+    "hinted-priors": ({"hint_priors": True}, lambda e, docs: e.detect_batch(
+        docs, hints=CLDHints(content_language_hint="id", tld_hint="rs"))),
+    "html": ({}, lambda e, docs: e.detect_batch(
+        [f'<p lang="fr">{d}</p>&amp;<script>x</script>' for d in docs],
+        is_plain_text=False)),
+    "want-ranges": ({}, lambda e, docs: e.detect_batch(
+        docs, return_chunks=True)),
+    "span-subdocs": ({"longdoc_chunk_slots": 64}, lambda e, docs:
+                     e.detect_spans([" ".join(docs[i::8])
+                                     for i in range(8)])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(REAL_PATHS))
+def test_real_path_wires(cuda_dt, path):
+    """The wires a CPU engine sends on each path, through the kernel and
+    the plain version on the card: the hinted wire carries prior planes
+    and whack rows, the chunk-vector wire asks for full output."""
+    kw, run = REAL_PATHS[path]
+    eng = NgramBatchEngine(device="cpu", **kw)
+    with chip_smoke.DispatchRecorder([eng]) as rec:
+        run(eng, _eval_docs())
+    assert rec.records
+    for r in rec.records:
+        if path == "hinted-priors":
+            assert "cprior" in r["wire"]
+            assert r["wire"]["cwhack"].shape[-1] > 1
+        assert r["full_out"] == (path == "want-ranges")
+        _assert_kernel_equals_plain(cuda_dt, r["wire"])

@@ -3,9 +3,10 @@
 On the CPU (device="cpu": the plain PyTorch scorer) the port's packer,
 tables and engine are held against the reference package's on the same
 documents: packer wires array for array, device tables plane for plane,
-and detect_batch / detect_codes answers byte for byte. Also: an engine
-built without a device on a host with no CUDA raises, and the port runs
-without importing jax or the reference package.
+and detect_batch / detect_codes answers byte for byte, hints, HTML
+input and chunk vectors included. Also: an engine built without a device
+on a host with no CUDA raises, and the port runs without importing jax
+or the reference package.
 """
 from __future__ import annotations
 
@@ -214,21 +215,43 @@ def test_no_device_means_cuda_and_raises_without_it():
         TorchDetector()
 
 
-def test_unported_arguments_raise(cpu_engine):
-    td = TorchDetector(device="cpu")
-    for kw in ({"hints": object()}, {"is_plain_text": False},
-               {"return_chunks": True}):
-        with pytest.raises(NotImplementedError):
-            td.detect_batch(["hello world"], **kw)
-        with pytest.raises(NotImplementedError):
-            cpu_engine.detect_batch(["hello world"], **kw)
-        with pytest.raises(NotImplementedError):
-            td.detect("hello world", **kw)
+def test_hints_html_and_chunks_answer_like_reference(cpu_engine,
+                                                     jax_engine):
+    """hints, is_plain_text=False and return_chunks=True answer through
+    LanguageDetector.detect, LanguageDetector.detect_batch and
+    NgramBatchEngine.detect_batch exactly as the JAX detector and engine
+    do, on "hello world" and a mixed-script document."""
+    from language_detector_tpu.hints import CLDHints as JaxHints
+    from language_detector_tpu_torch.hints import CLDHints
+    docs = ["hello world",
+            "This is English text mixed with 日本語のテキストです。"
+            "東京は日本の首都 and Это русский текст <b>too</b>."]
+    td, jd = TorchDetector(device="cpu"), JaxDetector()
+    for kw, jkw in (
+            ({"hints": CLDHints(content_language_hint="ja", tld_hint="ru")},
+             {"hints": JaxHints(content_language_hint="ja",
+                                tld_hint="ru")}),
+            ({"is_plain_text": False}, {"is_plain_text": False}),
+            ({"return_chunks": True}, {"return_chunks": True})):
+        assert [dataclasses.astuple(r) for r in
+                td.detect_batch(docs, **kw)] == \
+            [dataclasses.astuple(r) for r in jd.detect_batch(docs, **jkw)]
+        got = cpu_engine.detect_batch(docs, **kw)
+        want = jax_engine.detect_batch(docs, **jkw)
+        assert _rows(got) == _rows(want)
+        assert [[(c.offset, c.bytes, c.lang1) for c in r.chunks or []]
+                for r in got] == \
+            [[(c.offset, c.bytes, c.lang1) for c in r.chunks or []]
+             for r in want]
+        for d in docs:
+            assert dataclasses.astuple(td.detect(d, **kw)) == \
+                dataclasses.astuple(jd.detect(d, **jkw))
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh process that imports the port and runs one CPU
-    detect_batch holds no jax and no language_detector_tpu module."""
+    """A fresh process that imports the port and runs CPU plain, hinted,
+    HTML, span and chunk-vector calls holds no jax and no
+    language_detector_tpu module."""
     code = (
         "import sys\n"
         "import language_detector_tpu_torch as lt\n"
@@ -236,8 +259,16 @@ def test_port_imports_neither_jax_nor_reference():
         "ln = open(DATA_DIR / 'eval_corpus.tsv', encoding='utf-8')"
         ".readline()\n"
         "d = lt.LanguageDetector(device='cpu')\n"
-        "r = d.detect_batch([ln.split('\\t', 1)[1]] * 70)\n"
+        "doc = ln.split('\\t', 1)[1]\n"
+        "r = d.detect_batch([doc] * 70)\n"
         "assert r[0].language == ln.split('\\t')[0], r[0]\n"
+        "h = lt.CLDHints(content_language_hint='id')\n"
+        "assert d.detect_batch([doc] * 3, hints=h)[0].language\n"
+        "assert d.detect_batch(['<p lang=fr>' + doc + '</p>'],\n"
+        "                      is_plain_text=False)[0].language\n"
+        "assert d.detect_spans([doc + ' ' + doc])[0].spans\n"
+        "assert d.detect_batch([doc], return_chunks=True)[0].chunks\n"
+        "assert lt.detect_language_version().startswith('V')\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'language_detector_tpu'"
         " or m.startswith('language_detector_tpu.')]\n"
