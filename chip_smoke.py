@@ -58,6 +58,19 @@ each printing one line:
             answers equal to the scalar engine's on a seeded sample of
             256 (scalar_agrees); documents per second, the split and
             the documents the scalar engine resolved (engine_counts)
+  service   the service fronts on the card: the asyncio front (serve)
+            and the threaded front (make_server) over DetectorService()
+            (default device: CUDA), each with its unix-socket lane,
+            answer the mix as requests of 1 ... 256 items (plus 65 and
+            256) from 16 concurrent clients a lane, then every
+            WIRE_CASES body (tests/test_wire.py's adversarial corpus)
+            with the fast scanner on and off; every (status, request
+            id, payload bytes) must equal the same traffic through the
+            port's fronts on the CPU (a spawned worker), the kernel must
+            have launched once per device dispatch, the breaker stayed
+            closed, the scalar engine answered nothing, and the card's
+            run took under 60 s; docs/s, p50/p99 latency, flushes and
+            their mean size per lane beside the card's name and power
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -66,7 +79,8 @@ commit unpacked with git archive), so two versions of the kernel can be
 timed in turns on one card.
 
 The last two lines are the kernel table as JSON (its launches count the
-main path's and every accuracy path's) and the run's verdict,
+main path's, every accuracy path's and the service phase's) and the
+run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -75,6 +89,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import json
+import math
 import multiprocessing
 import os
 import random
@@ -371,21 +386,27 @@ def bound_ms(dt, p: dict, full_out: bool) -> tuple:
     return t_ops, "operations", nbytes, ops
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, count=None) -> dict:
     """Run fn() once under torch.profiler and read the device's share of
     the wall time from the trace: the union of its kernel, copy and
     memset intervals over the host-clock seconds of the call (the
     profiler's own host cost is inside that wall time). Also the trace's
     fused_tote kernel count and device time, and the count and names of
     every other kernel it holds. Busy fields are None when the trace
-    holds no device events."""
+    holds no device events. count: a launch counter read just inside
+    the traced window, at its start and after the device is idle, so
+    "launches" counts what the trace could see; "launch_calls" counts
+    the trace's kernel-launch API records (every launch in the window,
+    whoever made it)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        n0 = count() if count else None
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        n_launch = count() - n0 if count else None
     BUILD.mkdir(parents=True, exist_ok=True)
     path = BUILD / f"chip_smoke_trace.{os.getpid()}.json"
     prof.export_chrome_trace(str(path))
@@ -413,7 +434,25 @@ def device_busy(fn) -> dict:
             "fused_tote_traced": len(ours),
             "fused_tote_traced_ms": sum(ours) / 1e3,
             "other_kernels": len(kernel_events) - len(ours),
-            "other_kernel_names": others}
+            "other_kernel_names": others, "launches": n_launch,
+            "launch_calls": sum(
+                1 for e in events if e.get("ph") == "X" and
+                e.get("cat") in ("cuda_runtime", "cuda_driver") and
+                "LaunchKernel" in e.get("name", ""))}
+
+
+def quiesce(kernels, still_s: float = 0.2, limit_s: float = 10.0) -> None:
+    """Wait until no kernel has launched for still_s seconds (at most
+    limit_s) and the device is idle: a flush still running from earlier
+    traffic must not straddle a traced window's start."""
+    t_end = time.monotonic() + limit_s
+    n = kernels.launches
+    while time.monotonic() < t_end:
+        time.sleep(still_s)
+        if kernels.launches == n:
+            break
+        n = kernels.launches
+    torch.cuda.synchronize()
 
 
 def kernel_and_wrapper_ms(kernels, dt, p: dict) -> dict:
@@ -787,6 +826,460 @@ def host_split(ngram):
             setattr(owner, name, fn)
 
 
+# -- service fronts ----------------------------------------------------------
+
+# tests/test_wire.py's adversarial request bodies, copied (the port's
+# tests hold this copy equal to that list)
+_WIRE_BIG_BODY = json.dumps(
+    {"request": [{"text": f"document number {i} with some text"}
+                 for i in range(1500)]}).encode()
+_WIRE_LONG_DOC = json.dumps({"request": [{"text": "word " * 10000}]}).encode()
+WIRE_CASES = [
+    b'{"request": [{"text": "hello world"}]}',
+    b'{"request":[{"text":"compact"}]}',
+    b'{ "request" : [ { "text" : "spaced" } ] }',
+    b'{\n\t"request": [\r\n{"text": "ws"}\n]\n}',
+    b'{"request": []}',
+    b'{"request": [{"text": ""}]}',
+    b'{"request": [{"text": "a"}, {"text": "b"}, {"text": "c"}]}',
+    b'{"request": [{"text": "a"} , {"text": "b"}]}',
+    json.dumps({"request": [{"text": "café 中文"}]}).encode(),
+    json.dumps({"request": [{"text": "café 中文"}]},
+               ensure_ascii=False).encode(),
+    json.dumps({"request": [{"text": "emoji \U0001f600 end"}]}).encode(),
+    json.dumps({"request": [{"text": "emoji \U0001f600 end"}]},
+               ensure_ascii=False).encode(),
+    b'{"request": [{"text": "esc \\" q \\\\ b \\n nl \\u0041"}]}',
+    b'{"request": [{"text": "ends in backslash \\\\"}]}',
+    b'{"request": [{"text": "\\ud83d\\ude00"}]}',
+    b'{"request": [{"text": "dup", "text": "dup2"}]}',
+    b'{"request": [{"text": "x", "extra": 1}]}',
+    b'{"request": [{"other": "x"}]}',
+    b'{"request": [{"text": 5}]}',
+    b'{"request": [{"text": null}]}',
+    b'{"request": [{"text": ["a"]}]}',
+    b'{"request": [{"text": {"deep": {"er": 1}}}]}',
+    b'{"request": ["nope"]}',
+    b'{"request": [17]}',
+    b'{"request": "nope"}',
+    b'{"request": 5}',
+    b'{"request": [{"text": NaN}]}',
+    b'{"other": []}',
+    b'{}',
+    b'[]',
+    b'5',
+    b'',
+    b'{"request": [{"text": "a"}]} trailing',
+    b'{"request": [{"text": "a"}]',
+    b'{"request": [{"text": "a"',
+    b'{"request": [{"text": "unterminated',
+    b'{"request": [{"text"',
+    b'{"request": [{',
+    b'{"request',
+    b'{',
+    b'not json{{',
+    b'{"request": [{"text": "ctrl \x01 char"}]}',
+    b'{"request": [{"text": "tab\ttab"}]}',
+    json.dumps({"request": [{"text": "line sep"}]},
+               ensure_ascii=False).encode(),
+    b'{"request": [{"text": "hi @user see http://x.com now"}]}',
+    _WIRE_BIG_BODY,
+    _WIRE_LONG_DOC,
+]
+
+SERVICE_CLIENTS = 16         # concurrent clients per front and lane
+SERVICE_MAX_ITEMS = 256      # request sizes are drawn from 1 ... this
+SERVICE_FIXED = (65, 65, 256, 256)   # fixed request sizes besides
+SERVICE_LANES = ("aio-http", "aio-uds", "threaded-http", "threaded-uds")
+SERVICE_BODY_BYTES = 1_000_000   # under the fronts' 1 MB body limit
+
+
+def service_requests(docs: list, seed: int) -> list:
+    """Request bodies over the mix: sizes drawn from 1 ... 256 with the
+    seed until every document (shuffled) is used, then the fixed sizes
+    (65 and 256 items, of documents under 2,000 chars). Bodies alternate
+    between \\u-escaped and raw UTF-8 JSON; a draw whose body would
+    pass the 1 MB body limit takes fewer documents."""
+    rng = random.Random(seed)
+    order = list(range(len(docs)))
+    rng.shuffle(order)
+
+    def body(texts, k):
+        return json.dumps({"request": [{"text": t} for t in texts]},
+                          ensure_ascii=k % 2 == 0).encode()
+
+    out, i = [], 0
+    while i < len(order):
+        n = rng.randint(1, SERVICE_MAX_ITEMS)
+        while True:
+            b = body([docs[j] for j in order[i:i + n]], len(out))
+            if len(b) <= SERVICE_BODY_BYTES or n == 1:
+                break
+            n = max(1, n * SERVICE_BODY_BYTES // len(b))
+        out.append(b)
+        i += n
+    fixed = [d for d in docs if len(d) < 2000]
+    for n in SERVICE_FIXED:
+        out.append(body(rng.sample(fixed, n), len(out)))
+    return out
+
+
+class Fronts:
+    """Both fronts of one package in this process on ephemeral ports,
+    each with its unix-socket lane: the asyncio front (`serve`, its lane
+    opened through LDT_UNIX_SOCKET) on a thread of its own, and the
+    threaded front (`make_server` plus `wire.UnixFrameServer`). The
+    package is the port here; the tests also pass the reference.
+    make_service(server module, threaded) builds each front's
+    DetectorService."""
+
+    def __init__(self, package: str, make_service, sock_dir: str):
+        import asyncio
+        import importlib
+        import threading
+        server, aioserver, wire = (
+            importlib.import_module(f"{package}.service.{m}")
+            for m in ("server", "aioserver", "wire"))
+        self.wire = wire
+        os.makedirs(sock_dir, exist_ok=True)
+        self.uds = {"aio": os.path.join(sock_dir, "aio.sock"),
+                    "threaded": os.path.join(sock_dir, "thr.sock")}
+        self.svc = {"threaded": make_service(server, True),
+                    "aio": make_service(server, False)}
+        self.httpd, self.metricsd, _ = server.make_server(
+            0, 0, service=self.svc["threaded"])
+        self._threads = [threading.Thread(target=s.serve_forever,
+                                          daemon=True)
+                         for s in (self.httpd, self.metricsd)]
+        for t in self._threads:
+            t.start()
+        self.uds_server = wire.UnixFrameServer(self.svc["threaded"],
+                                               self.uds["threaded"])
+        self.uds_server.start()
+        box: dict = {}
+        started = threading.Event()
+
+        async def run():
+            loop = asyncio.get_running_loop()
+            ready = loop.create_future()
+            box["loop"] = loop
+            box["task"] = loop.create_task(aioserver.serve(
+                0, 0, svc=self.svc["aio"], ready=ready))
+            box["ports"] = await ready
+            started.set()
+            with contextlib.suppress(asyncio.CancelledError):
+                await box["task"]
+
+        old = os.environ.get("LDT_UNIX_SOCKET")
+        os.environ["LDT_UNIX_SOCKET"] = self.uds["aio"]
+        try:
+            self._aio = threading.Thread(target=asyncio.run, args=(run(),),
+                                         daemon=True)
+            self._aio.start()
+            if not started.wait(120):
+                raise RuntimeError("the asyncio front did not start")
+        finally:
+            if old is None:
+                os.environ.pop("LDT_UNIX_SOCKET", None)
+            else:
+                os.environ["LDT_UNIX_SOCKET"] = old
+        self._box = box
+        self.port = {"aio": box["ports"][0],
+                     "threaded": self.httpd.server_address[1]}
+        self.metrics_port = {"aio": box["ports"][1],
+                             "threaded": self.metricsd.server_address[1]}
+
+    def close(self) -> None:
+        box = self._box
+        box["loop"].call_soon_threadsafe(box["task"].cancel)
+        self._aio.join(30)
+        self.uds_server.close()
+        self.httpd.shutdown()
+        self.metricsd.shutdown()
+        self.httpd.server_close()
+        self.metricsd.server_close()
+        self.svc["threaded"].batcher.close()
+
+
+class ServiceClient:
+    """One client's connections to a front: HTTP/1.1 keep-alive and a
+    unix-socket frame connection, each reopened after the server closes
+    it. Answers are (status, echoed request id, payload bytes)."""
+
+    def __init__(self, fronts: Fronts, front: str):
+        import http.client
+        self.fronts, self.front = fronts, front
+        self.http = http.client.HTTPConnection(
+            "127.0.0.1", fronts.port[front], timeout=120)
+        self.sock = None
+
+    def post(self, body: bytes, request_id: str | None) -> tuple:
+        hdrs = {"Content-Type": "application/json"}
+        if request_id is not None:
+            hdrs["X-LDT-Request-Id"] = request_id
+        self.http.request("POST", "/", body, hdrs)
+        r = self.http.getresponse()
+        payload = r.read()
+        return r.status, r.getheader("X-LDT-Request-Id"), payload
+
+    def frame(self, body: bytes, request_id: str | None) -> tuple:
+        """A v2 frame carrying the request id, or a v1 frame without."""
+        import socket
+        wire = self.fronts.wire
+        if self.sock is None:
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.settimeout(120)
+            self.sock.connect(self.fronts.uds[self.front])
+        self.sock.sendall(wire.pack_frame(body, request_id=request_id))
+        status, rid, payload = wire.recv_response_frame(self.sock)
+        if status == 413:        # the lane closes after an oversize frame
+            self.close_socket()
+        return status, rid, payload
+
+    def close_socket(self) -> None:
+        if self.sock is not None:
+            self.sock.close()
+            self.sock = None
+
+    def close(self) -> None:
+        self.http.close()
+        self.close_socket()
+
+
+def drive_lane(fronts: Fronts, lane: str, bodies: list,
+               clients: int = SERVICE_CLIENTS) -> tuple:
+    """Send every body once through one front's lane ("aio-http", ...)
+    from `clients` concurrent clients. Request i carries the id
+    "<lane>-<i>": as a header over HTTP, over the socket in a v2 frame
+    for even i and in a v1 frame (no id) for odd i. Returns (answers
+    in request order, per-request seconds, wall seconds)."""
+    import threading
+    front, kind = lane.rsplit("-", 1)
+    answers: list = [None] * len(bodies)
+    secs: list = [0.0] * len(bodies)
+    nxt = iter(range(len(bodies)))
+    lock = threading.Lock()
+    errors: list = []
+
+    def client():
+        c = ServiceClient(fronts, front)
+        try:
+            while True:
+                with lock:
+                    i = next(nxt, None)
+                if i is None:
+                    return
+                rid = f"{lane}-{i}"
+                t0 = time.perf_counter()
+                if kind == "http":
+                    answers[i] = c.post(bodies[i], rid)
+                else:
+                    answers[i] = c.frame(bodies[i],
+                                         rid if i % 2 == 0 else None)
+                secs[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - reported after the join
+            errors.append(e)
+        finally:
+            c.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"{lane}: client failed: {errors[:3]}")
+    return answers, secs, wall
+
+
+def wire_case_answers(fronts: Fronts) -> dict:
+    """Every WIRE_CASES body through every lane of both fronts, with the
+    fast request scanner on and off (LDT_WIRE_FASTPATH 1, 0), one client
+    each: {"<lane>/fast=<flag>": answers}."""
+    out = {}
+    old = os.environ.get("LDT_WIRE_FASTPATH")
+    try:
+        for flag in ("1", "0"):
+            os.environ["LDT_WIRE_FASTPATH"] = flag
+            for lane in SERVICE_LANES:
+                out[f"{lane}/fast={flag}"] = drive_lane(
+                    fronts, lane, WIRE_CASES, clients=1)[0]
+    finally:
+        if old is None:
+            os.environ.pop("LDT_WIRE_FASTPATH", None)
+        else:
+            os.environ["LDT_WIRE_FASTPATH"] = old
+    return out
+
+
+def port_service(server, threaded: bool, device=None):
+    """The port's DetectorService for one front (the asyncio front
+    brings its own batcher)."""
+    return server.DetectorService(start_batcher=threaded, device=device)
+
+
+def service_reference(bodies: list, sock_dir: str) -> dict:
+    """Worker process: the same traffic through the port's fronts on the
+    CPU (device="cpu", the plain scorer): {lane: answers} for the mix
+    and {"<lane>/fast=<flag>": answers} for WIRE_CASES."""
+    import functools
+    torch.set_num_threads(2)
+    fronts = Fronts("language_detector_tpu_torch",
+                    functools.partial(port_service, device="cpu"),
+                    sock_dir)
+    try:
+        out = {lane: drive_lane(fronts, lane, bodies)[0]
+               for lane in SERVICE_LANES}
+        out.update(wire_case_answers(fronts))
+    finally:
+        fronts.close()
+    return out
+
+
+def stage_totals(telemetry) -> dict:
+    """{stage: (count, ms)} over the ldt_stage_latency_ms histograms:
+    per request parse, detect (the wait for its flush) and encode; per
+    flush c_path, pack, dispatch (the device wait), epilogue and
+    retry_lane; scalar_detect."""
+    return {k: (v["count"], v["count"] * v["mean"])
+            for k, v in telemetry.REGISTRY.stage_percentiles().items()}
+
+
+def percentile(xs: list, q: float) -> float:
+    """The q-th percentile (0-100) of xs by the nearest rank."""
+    ys = sorted(xs)
+    return ys[min(len(ys) - 1, max(0, math.ceil(len(ys) * q / 100) - 1))]
+
+
+def service_phase(seed: int, docs: list, kernels, smi: str,
+                  device=None) -> int:
+    """Phase `service`: the asyncio and threaded fronts over
+    DetectorService() on the card (the default device), each with its
+    unix-socket lane, answer the mix (service_requests: 1 ... 256 items
+    a request, plus 65 and 256) from SERVICE_CLIENTS concurrent clients
+    a lane, then every WIRE_CASES body with the fast scanner on and
+    off, and the asyncio HTTP lane once more under torch.profiler (the
+    device's busy share). Every (status, request id, payload) must
+    equal the port's fronts on the CPU (a spawned worker, run first);
+    the kernel must have launched once per device dispatch, every launch
+    of the traced lane must be in its trace's launch calls with no other
+    launch or kernel, the
+    breaker must have stayed closed,
+    no request was answered by the scalar engine, and the card's run
+    took under 60 s. Returns the kernel launches it made. device: the
+    fronts' engine device (None: the card; a CPU rehearsal passes
+    "cpu" and fails at the launch check)."""
+    import functools
+    import tempfile
+
+    from language_detector_tpu_torch import telemetry
+    from language_detector_tpu_torch.service.admission import \
+        BREAKER_STATE_NAMES
+    bodies = service_requests(docs, seed)
+    sock_dir = tempfile.mkdtemp(prefix="ldt-smoke-")
+    t0 = time.monotonic()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        want = pool.submit(service_reference, bodies,
+                           os.path.join(sock_dir, "cpu")).result()
+    ref_s = time.monotonic() - t0
+
+    t_phase = time.monotonic()
+    fronts = Fronts("language_detector_tpu_torch",
+                    functools.partial(port_service, device=device),
+                    os.path.join(sock_dir, "cuda"))
+    engines = {f: svc._engine for f, svc in fronts.svc.items()}
+    flushes: list = []
+
+    def counted(eng):
+        detect = eng.detect_codes
+
+        def call(texts, *a, **k):
+            flushes.append(len(texts))
+            return detect(texts, *a, **k)
+        return call
+
+    for eng in engines.values():
+        eng.detect_codes = counted(eng)
+    before = {f: e.stats_snapshot() for f, e in engines.items()}
+    stages0 = stage_totals(telemetry)
+    kernels.launches = 0
+    lanes = {}
+    got = {}
+    try:
+        for lane in SERVICE_LANES:
+            got[lane], secs, wall = drive_lane(fronts, lane, bodies)
+            n_docs = sum(len(json.loads(b)["request"]) for b in bodies)
+            lanes[lane] = {"requests": len(bodies), "docs": n_docs,
+                           "wall_s": wall, "docs_per_s": n_docs / wall,
+                           "p50_ms": percentile(secs, 50) * 1e3,
+                           "p99_ms": percentile(secs, 99) * 1e3}
+        got.update(wire_case_answers(fronts))
+        quiesce(kernels)
+        traced = device_busy(lambda: drive_lane(fronts, "aio-http", bodies),
+                             count=lambda: kernels.launches)
+        n_launch = kernels.launches
+        phase_s = time.monotonic() - t_phase
+        after = {f: e.stats_snapshot() for f, e in engines.items()}
+        breaker = {f: BREAKER_STATE_NAMES[
+            svc.admission.breaker.stats()["state"]]
+            for f, svc in fronts.svc.items()}
+    finally:
+        fronts.close()
+    stages1 = stage_totals(telemetry)
+    stage_ms = {k: {"count": n - stages0.get(k, (0, 0.0))[0],
+                    "sum_ms": ms - stages0.get(k, (0, 0.0))[1]}
+                for k, (n, ms) in stages1.items()
+                if n > stages0.get(k, (0, 0.0))[0]}
+    scalar_n = stage_ms.get("scalar_detect", {}).get("count", 0)
+    stats = {k: sum(after[f][k] - before[f][k] for f in engines)
+             for k in after["aio"]}
+    diffs = {key: [i for i, (a, b) in enumerate(zip(got[key], want[key]))
+                   if a != b] for key in want}
+    bad = {k: v[:5] for k, v in diffs.items()
+           if v or len(got[k]) != len(want[k])}
+    big = [n for n in flushes if n > 64]
+    phase("service", card=smi, lanes=lanes,
+          wire_cases=len(WIRE_CASES),
+          requests_compared=sum(len(v) for v in want.values()),
+          cpu_equal=not bad, cpu_reference_s=ref_s, phase_s=phase_s,
+          flushes=len(flushes), mean_flush_docs=statistics.mean(flushes),
+          flushes_over_64=len(big),
+          device_flush_docs=sum(big), c_path_docs=stats["c_path_docs"],
+          launches=n_launch, device_dispatches=stats["device_dispatches"],
+          engine=stats, breaker=breaker, scalar_answered=scalar_n,
+          stage_ms=stage_ms, traced_aio_http=traced)
+    if bad:
+        raise AssertionError(f"service answers differ from the CPU "
+                             f"fronts' at {bad}")
+    if not (n_launch > 0 and n_launch == stats["device_dispatches"]):
+        raise AssertionError(f"service: {n_launch} kernel launches over "
+                             f"{stats['device_dispatches']} device "
+                             "dispatches; want one launch a dispatch")
+    # every launch of the traced lane must be in the trace as a launch
+    # call, and no other launch or kernel: late in the smoke the trace
+    # drops the device records of a lane's first flushes (PERF.md
+    # section 7), so the kernel events may fall short, never exceed
+    if not (traced["launches"] == traced["launch_calls"] > 0 and
+            0 < traced["fused_tote_traced"] <= traced["launches"]) or \
+            traced["other_kernels"]:
+        raise AssertionError(
+            f"service trace: {traced['launches']} launches, "
+            f"{traced['launch_calls']} launch calls, "
+            f"{traced['fused_tote_traced']} traced fused_tote launches and "
+            f"{traced['other_kernels']} other kernels "
+            f"{traced['other_kernel_names']}; want every launch traced")
+    if any(b != "closed" for b in breaker.values()) or scalar_n:
+        raise AssertionError(f"service: breaker {breaker}, {scalar_n} "
+                             "requests answered by the scalar engine")
+    if phase_s >= 60:
+        raise AssertionError(f"service phase took {phase_s:.1f} s")
+    return n_launch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1142,6 +1635,9 @@ def main() -> int:
               scalar_sample=len(scalar_ref.get(name, ())) or None,
               scalar_cjk_rows_differ=cjk_rows_differ,
               docs_per_s=n_items / tr["wall_s"], split=split, trace=tr)
+
+    # -- service: both fronts on the card, HTTP and unix-socket lanes --------
+    launches += service_phase(args.seed, docs, kernels, smi)
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",

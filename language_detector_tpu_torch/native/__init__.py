@@ -8,10 +8,12 @@ exists and callers keep using the Python packer.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +30,7 @@ _GLUE_SO = _DIR / "libldtglue_torch.so"
 
 _lib = None
 _init_keepalive: list = []
-_lock = __import__("threading").Lock()
+_lock = threading.Lock()
 
 
 def _build() -> bool:
@@ -254,20 +256,73 @@ def _ptr(a: np.ndarray, dtype):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _ensure_init(tables: ScoringTables, reg: Registry):
-    """Upload table pointers once per (tables, registry) pair. Holds
+def _installed(tables: ScoringTables, reg: Registry) -> bool:
+    return bool(_initialized_for) and _initialized_for[0] is tables \
+        and _initialized_for[1] is reg
+
+
+class _TableGate:
+    """The library holds ONE set of tables for the whole process, and
+    every pack or C-path detection reads it while it runs. A call
+    enters the gate as a reader of the (tables, registry) pair it
+    needs; installing another pair (a hot swap's new engine, a second
+    engine in the process) waits until no reader is left, so it never
+    frees or overwrites tables a running call still reads. Readers of
+    the installed pair wait while a call for another pair is waiting,
+    so two engines take turns instead of starving each other."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0
+        self._waiting = 0   # calls waiting for another pair
+
+    @contextlib.contextmanager
+    def reading(self, tables: ScoringTables, reg: Registry):
+        with self._cond:
+            mine = False    # this call counts in _waiting
+            while True:
+                if _installed(tables, reg):
+                    if mine or self._waiting == 0:
+                        break
+                    self._cond.wait()
+                    continue
+                if not mine:
+                    mine = True
+                    self._waiting += 1
+                if self._readers == 0:
+                    try:
+                        _install(tables, reg)
+                    except BaseException:
+                        self._waiting -= 1
+                        self._cond.notify_all()
+                        raise
+                else:
+                    self._cond.wait()
+            if mine:
+                self._waiting -= 1
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                self._cond.notify_all()
+
+
+_gate = _TableGate()
+
+
+def _install(tables: ScoringTables, reg: Registry):
+    """Upload table pointers for a (tables, registry) pair. Holds
     strong references to the actual objects (not ids — CPython recycles
-    addresses) and serializes re-init across threads."""
+    addresses). Called only through _TableGate, with no reader in the
+    library."""
     global _initialized_for
     key = (tables, reg)
-    if _initialized_for and _initialized_for[0] is tables and \
-            _initialized_for[1] is reg:
-        return
     lib = _load()
     with _lock:
-        if _initialized_for and _initialized_for[0] is tables and \
-                _initialized_for[1] is reg:
-            return
+        # nothing counts as installed until the whole upload is done
+        _initialized_for = ()
         seed_lp = np.zeros(reg.num_scripts, np.uint32)
         for s in range(reg.num_scripts):
             lang = reg.default_language(s)
@@ -350,7 +405,8 @@ def ensure_init(tables: ScoringTables, reg: Registry):
     lib = _load()
     if not lib:
         raise RuntimeError("native library unavailable")
-    _ensure_init(tables, reg)
+    with _gate.reading(tables, reg):
+        pass
     return lib
 
 
@@ -362,7 +418,6 @@ def pack_batch_native(texts: list[str], tables: ScoringTables,
     lib = _load()
     if not lib:
         raise RuntimeError("native packer unavailable")
-    _ensure_init(tables, reg)
 
     B, L, C, D = len(texts), max_slots, max_chunks, max_direct
     blob, bounds = _marshal_texts(texts)
@@ -392,22 +447,26 @@ def pack_batch_native(texts: list[str], tables: ScoringTables,
     if n_threads <= 0:
         import os
         n_threads = min(8, os.cpu_count() or 1)
-    lib.ldt_pack_batch(
-        _ptr(blob, np.uint8), _ptr(bounds, np.int64),
-        ctypes.c_int32(B), ctypes.c_int32(L), ctypes.c_int32(C),
-        ctypes.c_int32(D), ctypes.c_int32(flags),
-        ctypes.c_int32(n_threads),
-        _ptr(out.kind, np.int8), _ptr(out.offset, np.int32),
-        _ptr(out.fp, np.uint32), _ptr(out.fp_hi, np.uint8),
-        _ptr(out.chunk_base, np.int32), _ptr(out.span_start, np.int32),
-        _ptr(out.span_end_off, np.int32), _ptr(out.side, np.int8),
-        _ptr(out.cjk, np.int8), _ptr(out.script, np.int16),
-        _ptr(out.chunk_script, np.int16), _ptr(out.chunk_cjk, np.int8),
-        _ptr(out.chunk_side, np.int8), _ptr(out.chunk_span_end, np.int32),
-        out.direct_adds.ctypes.data_as(ctypes.c_void_p),
-        _ptr(out.text_bytes, np.int32),
-        out.fallback.ctypes.data_as(ctypes.c_void_p),
-        _ptr(out.n_slots, np.int32), _ptr(out.n_chunks, np.int32))
+    with _gate.reading(tables, reg):
+        lib.ldt_pack_batch(
+            _ptr(blob, np.uint8), _ptr(bounds, np.int64),
+            ctypes.c_int32(B), ctypes.c_int32(L), ctypes.c_int32(C),
+            ctypes.c_int32(D), ctypes.c_int32(flags),
+            ctypes.c_int32(n_threads),
+            _ptr(out.kind, np.int8), _ptr(out.offset, np.int32),
+            _ptr(out.fp, np.uint32), _ptr(out.fp_hi, np.uint8),
+            _ptr(out.chunk_base, np.int32),
+            _ptr(out.span_start, np.int32),
+            _ptr(out.span_end_off, np.int32), _ptr(out.side, np.int8),
+            _ptr(out.cjk, np.int8), _ptr(out.script, np.int16),
+            _ptr(out.chunk_script, np.int16),
+            _ptr(out.chunk_cjk, np.int8),
+            _ptr(out.chunk_side, np.int8),
+            _ptr(out.chunk_span_end, np.int32),
+            out.direct_adds.ctypes.data_as(ctypes.c_void_p),
+            _ptr(out.text_bytes, np.int32),
+            out.fallback.ctypes.data_as(ctypes.c_void_p),
+            _ptr(out.n_slots, np.int32), _ptr(out.n_chunks, np.int32))
     return out
 
 
@@ -647,7 +706,6 @@ def pack_chunks_native(texts: list[str], tables: ScoringTables,
     lib = _load()
     if not lib:
         raise RuntimeError("native packer unavailable")
-    _ensure_init(tables, reg)
 
     B, Dc = len(texts), max_direct
     hint_lp, hint_boost, whack_tbl, doc_whack = _hint_arrays(
@@ -671,19 +729,22 @@ def pack_chunks_native(texts: list[str], tables: ScoringTables,
         # nt=1 path packs on the calling thread with persistent
         # scratch.
         n_threads = min(16, os.cpu_count() or 1)
-    handle = lib.ldt_pack_flat_begin(
-        _ptr(blob, np.uint8), _ptr(bounds, np.int64),
-        ctypes.c_int32(B), ctypes.c_int32(l_doc), ctypes.c_int32(c_doc),
-        ctypes.c_int32(Dc), ctypes.c_int32(flags),
-        ctypes.c_int32(n_threads),
-        ctypes.c_int32(1 if want_ranges else 0),
-        _ptr(hint_boost, np.int32) if hint_boost is not None
-        else ctypes.c_void_p(None),
-        _ptr(direct_adds, np.int32), _ptr(text_bytes, np.int32),
-        fallback.ctypes.data_as(ctypes.c_void_p),
-        squeezed.ctypes.data_as(ctypes.c_void_p),
-        _ptr(n_slots, np.int32), _ptr(n_chunks, np.int32),
-        ctypes.byref(max_nsl))
+    # begin packs (it reads the installed tables); finish only lays the
+    # packed batch out into the wire arrays
+    with _gate.reading(tables, reg):
+        handle = lib.ldt_pack_flat_begin(
+            _ptr(blob, np.uint8), _ptr(bounds, np.int64),
+            ctypes.c_int32(B), ctypes.c_int32(l_doc),
+            ctypes.c_int32(c_doc), ctypes.c_int32(Dc),
+            ctypes.c_int32(flags), ctypes.c_int32(n_threads),
+            ctypes.c_int32(1 if want_ranges else 0),
+            _ptr(hint_boost, np.int32) if hint_boost is not None
+            else ctypes.c_void_p(None),
+            _ptr(direct_adds, np.int32), _ptr(text_bytes, np.int32),
+            fallback.ctypes.data_as(ctypes.c_void_p),
+            squeezed.ctypes.data_as(ctypes.c_void_p),
+            _ptr(n_slots, np.int32), _ptr(n_chunks, np.int32),
+            ctypes.byref(max_nsl))
 
     lease = None
     try:
@@ -832,9 +893,10 @@ def detect_one_native(text: str, tables: ScoringTables, reg: Registry):
     enc = text.encode("utf-8", errors="surrogatepass")
     if len(enc) > MAX_SCORE_BYTES:
         return None
-    _ensure_init(tables, reg)
     out = (ctypes.c_int64 * 14)()
-    if not lib.ldt_detect_one_full(enc, ctypes.c_int32(len(enc)), out):
+    with _gate.reading(tables, reg):
+        ok = lib.ldt_detect_one_full(enc, ctypes.c_int32(len(enc)), out)
+    if not ok:
         return None  # adversarial budget overflow: caller goes scalar
     return list(out)
 
@@ -854,15 +916,15 @@ def detect_batch_codes_native(texts: list[str], tables: ScoringTables,
     blob, bounds = _marshal_texts(texts)
     if int(np.diff(bounds).max(initial=0)) > MAX_SCORE_BYTES:
         return None
-    _ensure_init(tables, reg)
     out = np.zeros(B, np.int32)
     if n_threads <= 0:
         import os
         n_threads = min(8, os.cpu_count() or 1)
-    lib.ldt_detect_batch_codes(
-        _ptr(blob, np.uint8), _ptr(bounds, np.int64),
-        ctypes.c_int32(B), ctypes.c_int32(n_threads),
-        _ptr(out, np.int32))
+    with _gate.reading(tables, reg):
+        lib.ldt_detect_batch_codes(
+            _ptr(blob, np.uint8), _ptr(bounds, np.int64),
+            ctypes.c_int32(B), ctypes.c_int32(n_threads),
+            _ptr(out, np.int32))
     return out
 
 

@@ -33,8 +33,11 @@ LIB = BUILD_DIR / "libldt_fused_tote.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-# kernel launches since import (or since the caller last reset it)
+# kernel launches since import (or since the caller last reset it);
+# bumped only through count_launch, under _count_lock, since flush
+# workers launch from several threads at once
 launches = 0
+_count_lock = threading.Lock()
 
 # rows a shard row may hold: the kernel scans chunk starts in int32, and
 # 2^23 rows of at most 255 slots sum below 2^31
@@ -189,10 +192,16 @@ def prepare(dt: DeviceTables, p: dict, full_out: bool = False) -> tuple:
     return args, out, held
 
 
+def count_launch() -> None:
+    """Add one to `launches` (atomic across threads)."""
+    global launches
+    with _count_lock:
+        launches += 1
+
+
 def launch(call: tuple) -> torch.Tensor:
     """Launch one prepared call (`prepare`) on the output device's
     current stream; returns its output tensor."""
-    global launches
     args, out, _held = call
     if out.shape[0] == 0:
         return out
@@ -200,7 +209,7 @@ def launch(call: tuple) -> torch.Tensor:
     rc = _load().ldt_fused_tote(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_tote launch failed: CUDA error {rc}")
-    launches += 1
+    count_launch()
     return out
 
 

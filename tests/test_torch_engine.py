@@ -249,12 +249,20 @@ def test_hints_html_and_chunks_answer_like_reference(cpu_engine,
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """A fresh process that imports the port and runs CPU plain, hinted,
-    HTML, span and chunk-vector calls holds no jax and no
-    language_detector_tpu module."""
+    """A fresh process that imports every module of the port
+    (pkgutil.walk_packages, the service fronts included) and runs CPU
+    plain, hinted, HTML, span, chunk-vector and service calls holds no
+    jax* and no language_detector_tpu module."""
     code = (
-        "import sys\n"
+        "import importlib.util, pkgutil, sys\n"
         "import language_detector_tpu_torch as lt\n"
+        "mods = [m.name for m in pkgutil.walk_packages(lt.__path__,\n"
+        "        'language_detector_tpu_torch.')\n"
+        "        if importlib.util.find_spec(m.name).origin.endswith('.py')]"
+        "\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'language_detector_tpu_torch.service.aioserver' in mods\n"
         "from language_detector_tpu_torch.tables import DATA_DIR\n"
         "ln = open(DATA_DIR / 'eval_corpus.tsv', encoding='utf-8')"
         ".readline()\n"
@@ -269,8 +277,13 @@ def test_port_imports_neither_jax_nor_reference():
         "assert d.detect_spans([doc + ' ' + doc])[0].spans\n"
         "assert d.detect_batch([doc], return_chunks=True)[0].chunks\n"
         "assert lt.detect_language_version().startswith('V')\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')) or m == 'language_detector_tpu'"
+        "from language_detector_tpu_torch.service.server import "
+        "DetectorService\n"
+        "svc = DetectorService(device='cpu', max_delay_ms=1.0)\n"
+        "assert svc.detect_codes([doc] * 70)[0] == ln.split('\\t')[0]\n"
+        "svc.batcher.close()\n"
+        "bad = [m for m in sys.modules if m.startswith('jax') or "
+        "m == 'language_detector_tpu'"
         " or m.startswith('language_detector_tpu.')]\n"
         "print('BAD', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
