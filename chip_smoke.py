@@ -17,10 +17,13 @@ each printing one line:
   main      detect_codes over >= 4,096 documents built from
             eval_corpus.tsv (short slices, corpus documents, 10-50 KB
             concatenations, CJK runs, dense CJK runs), one call per K
-            bucket; the kernel must have launched once per dispatch, at
-            every K of 32 ... 256, and the answers must equal the port's
-            own CPU run and detect_scalar on a 256-document sample; the
-            same documents as one shuffled batch must answer the same
+            bucket, through the engine's stream scheduler at its
+            defaults (pipeline depth 2, the long-doc lane off); the
+            kernel must have launched once per device dispatch, at
+            every K of 32 ... 256, and the answers
+            must equal the port's own CPU run and detect_scalar on a
+            256-document sample; the same documents as one shuffled
+            batch must answer the same
   times     the kernel alone (a prepared launch), its wrapper
             (score_chunks_cuda: checks, output allocation, one launch) and
             the plain version on the card (CUDA events, median of reps)
@@ -31,11 +34,14 @@ each printing one line:
             under any kernel's time), the bound for that work, and
             end-to-end documents per second per K bucket and as one
             shuffled batch
-  breakdown host-clock pack / device / epilogue split of the first pass
+  breakdown host-clock pack / device / epilogue split of the first pass,
+            one K group a dispatch, serially
   trace     torch.profiler over one pass of each: the device's busy share
-            of the wall time, the fused_tote launches the trace saw, and
-            every other kernel it saw (there must be none: a dispatch is
-            one launch, besides copies)
+            of the wall time (partial when the trace lost kernel
+            records), the fused_tote launches the trace saw, and
+            every other kernel it saw (check_trace: every launch a launch
+            call in the trace, no other kernel, at least one fused_tote
+            event and no more than the launches)
   accuracy_parity
             the engine's other paths on the same mix, run on the CPU
             (device="cpu") in worker processes while the scalar engine
@@ -58,6 +64,21 @@ each printing one line:
             answers equal to the scalar engine's on a seeded sample of
             256 (scalar_agrees); documents per second, the split and
             the documents the scalar engine resolved (engine_counts)
+  scheduler detect_codes and detect_many through the stream scheduler
+            (dedup, tier lanes, long-doc lane, retry lane) on the mix and
+            on a duplicate-heavy copy of it (30% of positions copies), at
+            pipeline depths 1, 2 and 3 with the long-doc lane on (the
+            reference's default) and off (the port's): answers
+            identical across configurations and equal to the port's
+            CPU run (a spawned worker), launches
+            equal to device dispatches on every call, no retried document
+            off its tier, staging-ring hits at depth >= 2 and no release
+            under a copy in flight; docs/s (median of 5 alternating
+            passes), lane counters, overlap ratio and ring counters per
+            configuration; one depth-2 pass under torch.profiler
+            (check_trace); the kernel against its plain version on the
+            largest long-doc and retry-lane wires; the card's part under
+            60 s
   service   the service fronts on the card: the asyncio front (serve)
             and the threaded front (make_server) over DetectorService()
             (default device: CUDA), each with its unix-socket lane,
@@ -69,8 +90,12 @@ each printing one line:
             port's fronts on the CPU (a spawned worker), the kernel must
             have launched once per device dispatch, the breaker stayed
             closed, the scalar engine answered nothing, and the card's
-            run took under 60 s; docs/s, p50/p99 latency, flushes and
-            their mean size per lane beside the card's name and power
+            run took under 60 s; then one request with duplicates
+            (dup_request) a front, whose answers must equal the main
+            path's, after which each front's /metrics must show the
+            scheduler's mixed-tier and dedup series above 0; docs/s,
+            p50/p99 latency, flushes and their mean size per lane beside
+            the card's name and power
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -79,8 +104,8 @@ commit unpacked with git archive), so two versions of the kernel can be
 timed in turns on one card.
 
 The last two lines are the kernel table as JSON (its launches count the
-main path's, every accuracy path's and the service phase's) and the
-run's verdict,
+main path's, every accuracy path's, the scheduler phase's and the
+service phase's) and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -393,11 +418,13 @@ def device_busy(fn, count=None) -> dict:
     profiler's own host cost is inside that wall time). Also the trace's
     fused_tote kernel count and device time, and the count and names of
     every other kernel it holds. Busy fields are None when the trace
-    holds no device events. count: a launch counter read just inside
-    the traced window, at its start and after the device is idle, so
-    "launches" counts what the trace could see; "launch_calls" counts
-    the trace's kernel-launch API records (every launch in the window,
-    whoever made it)."""
+    holds no device events; when it holds fewer fused_tote records than
+    launches, the busy time it does hold goes under partial_busy_s /
+    partial_busy_share instead, as a lower bound. count: a launch
+    counter read just inside the traced window, at its start and after
+    the device is idle, so "launches" counts what the trace could see;
+    "launch_calls" counts the trace's kernel-launch API records (every
+    launch in the window, whoever made it)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -428,9 +455,17 @@ def device_busy(fn, count=None) -> dict:
         if e > end:
             busy_us += e - max(s, end)
             end = e
+    busy = busy_us / 1e6 if spans else None
+    # a trace that lost kernel records understates the device's part:
+    # its busy time is reported only as partial
+    complete = n_launch is None or len(ours) == n_launch
     return {"wall_s": wall, "device_events": len(spans),
-            "device_busy_s": busy_us / 1e6 if spans else None,
-            "device_busy_share": busy_us / 1e6 / wall if spans else None,
+            "device_busy_s": busy if complete else None,
+            "device_busy_share":
+                busy / wall if complete and spans else None,
+            "partial_busy_s": None if complete else busy,
+            "partial_busy_share":
+                None if complete or not spans else busy / wall,
             "fused_tote_traced": len(ours),
             "fused_tote_traced_ms": sum(ours) / 1e3,
             "other_kernels": len(kernel_events) - len(ours),
@@ -439,6 +474,22 @@ def device_busy(fn, count=None) -> dict:
                 1 for e in events if e.get("ph") == "X" and
                 e.get("cat") in ("cuda_runtime", "cuda_driver") and
                 "LaunchKernel" in e.get("name", ""))}
+
+
+def check_trace(name: str, t: dict) -> None:
+    """Every launch of a traced window is in its trace as a launch call,
+    no other kernel ran, and the trace holds at least one and at most
+    that many fused_tote kernel events (a multi-threaded window may lose
+    the device records of its first launches; PERF.md section 7)."""
+    if not (t["launches"] == t["launch_calls"] > 0 and
+            0 < t["fused_tote_traced"] <= t["launches"]) or \
+            t["other_kernels"]:
+        raise AssertionError(
+            f"{name}: {t['launches']} launches, {t['launch_calls']} launch "
+            f"calls, {t['fused_tote_traced']} traced fused_tote launches "
+            f"and {t['other_kernels']} other kernels "
+            f"{t['other_kernel_names']}; want one launch a dispatch, each "
+            "traced")
 
 
 def quiesce(kernels, still_s: float = 0.2, limit_s: float = 10.0) -> None:
@@ -485,18 +536,17 @@ def wire_shape_of(wire: dict) -> dict:
 
 
 def first_pass_breakdown(eng, groups: dict, native) -> dict:
-    """Host-clock split of the main path's first pass (no gate retry):
-    pack, device (wire copy + kernel + readback) and epilogue seconds,
-    summed over the K groups, and the retry pass's share of the docs."""
-    from language_detector_tpu_torch.ops.score import unpack_chunks_out
+    """Host-clock split of the main path's first pass, one K group a
+    dispatch, serially (no scheduler, no gate retry): pack, device (wire
+    copy + kernel + readback) and epilogue seconds, summed over the K
+    groups, and the retry pass's share of the docs."""
     t = {"pack_s": 0.0, "device_s": 0.0, "epilogue_s": 0.0}
     retry = 0
     for g in groups.values():
         t0 = time.monotonic()
         cb = eng._pack(g)
         t1 = time.monotonic()
-        rows = unpack_chunks_out(np.asarray(eng._launch(cb)),
-                                 cb.wire["cmeta"])
+        rows = eng._fetch_rows(cb, eng._launch(cb))
         t2 = time.monotonic()
         ep = native.epilogue_flat_native(rows, cb, eng.flags, eng.reg)
         t3 = time.monotonic()
@@ -731,7 +781,7 @@ def cpu_reference(name: str, inputs: tuple) -> tuple:
     engines = engine_set(load_tables(), reg, "cpu")
     with DispatchRecorder(engines.values()) as rec:
         answers = run(engines)
-    return answers, rec.records
+    return answers, rec.sorted_records()
 
 
 def scalar_reference(samples: dict, inputs: tuple) -> dict:
@@ -754,10 +804,25 @@ def wires_equal(a: dict, b: dict) -> bool:
         a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
 
 
+def wire_digest(wire: dict) -> str:
+    """A digest of a wire's planes (names, types, shapes, bytes): the
+    order in which two runs' dispatches are compared, since the
+    scheduler's worker threads launch in no fixed order."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    for k in sorted(wire):
+        a = np.ascontiguousarray(wire[k])
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 class DispatchRecorder:
-    """Records every dispatch the engines make inside the block: the wire
-    (numpy, as packed), whether full output was asked for, and the
-    output's shape."""
+    """Records every dispatch the engines make inside the block: a copy
+    of the wire (numpy, as packed: its staging lease is reused once the
+    dispatch retires), its lane, whether full output was asked for, and
+    the output's shape. `records` is in launch order; `sorted_records`
+    in wire-digest order, for comparing two runs."""
 
     def __init__(self, engines):
         self.engines = list(engines)
@@ -765,13 +830,19 @@ class DispatchRecorder:
 
     def __enter__(self):
         for eng in self.engines:
-            def launch(cb, full_out=False, _orig=eng._launch):
-                fut = _orig(cb, full_out)
-                self.records.append({"wire": cb.wire, "full_out": full_out,
+            def launch(cb, lane="main", full_out=False, _orig=eng._launch):
+                wire = {k: np.array(v) for k, v in cb.wire.items()}
+                fut = _orig(cb, lane, full_out)
+                self.records.append({"wire": wire, "lane": lane,
+                                     "full_out": full_out,
                                      "out_shape": tuple(fut.out.shape)})
                 return fut
             eng._launch = launch
         return self
+
+    def sorted_records(self) -> list:
+        return sorted(self.records, key=lambda r: (wire_digest(r["wire"]),
+                                                   r["full_out"]))
 
     def __exit__(self, *exc):
         for eng in self.engines:
@@ -1154,8 +1225,27 @@ def percentile(xs: list, q: float) -> float:
     return ys[min(len(ys) - 1, max(0, math.ceil(len(ys) * q / 100) - 1))]
 
 
+def dup_request(docs: list, seed: int) -> list:
+    """One request's documents with duplicates: 100 of the mix's
+    documents under 2,000 chars, each three times, shuffled with the
+    seed (one flush of 300 documents, 200 answered by dedup)."""
+    rng = random.Random(seed + 7)
+    texts = rng.sample([d for d in docs if len(d) < 2000], 100) * 3
+    rng.shuffle(texts)
+    return texts
+
+
+def metric_value(text: str, series: str) -> float:
+    """The value of one series line (name and labels as rendered) of a
+    Prometheus exposition; 0 when absent."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
 def service_phase(seed: int, docs: list, kernels, smi: str,
-                  device=None) -> int:
+                  answer: dict | None = None, device=None) -> int:
     """Phase `service`: the asyncio and threaded fronts over
     DetectorService() on the card (the default device), each with its
     unix-socket lane, answer the mix (service_requests: 1 ... 256 items
@@ -1218,6 +1308,32 @@ def service_phase(seed: int, docs: list, kernels, smi: str,
                            "p50_ms": percentile(secs, 50) * 1e3,
                            "p99_ms": percentile(secs, 99) * 1e3}
         got.update(wire_case_answers(fronts))
+        # a request with duplicates through each front, then each
+        # front's /metrics: the scheduler's tier and dedup series
+        sched_metrics = {}
+        dups = dup_request(docs, seed)
+        for front in ("aio", "threaded"):
+            c = ServiceClient(fronts, front)
+            try:
+                status, _, payload = c.post(json.dumps(
+                    {"request": [{"text": t} for t in dups]}).encode(),
+                    None)
+            finally:
+                c.close()
+            codes = [r.get("iso6391code") for r in
+                     json.loads(payload)["response"]]
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{fronts.metrics_port[front]}"
+                    "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            sched_metrics[front] = {
+                "status": status,
+                "answers_equal": answer is None or
+                codes == [answer[t] for t in dups],
+                "tier_mixed": metric_value(
+                    text, 'ldt_tier_dispatches_total{tier="mixed"}'),
+                "dedup": metric_value(text, "ldt_dedup_documents_total")}
         quiesce(kernels)
         traced = device_busy(lambda: drive_lane(fronts, "aio-http", bodies),
                              count=lambda: kernels.launches)
@@ -1251,7 +1367,8 @@ def service_phase(seed: int, docs: list, kernels, smi: str,
           device_flush_docs=sum(big), c_path_docs=stats["c_path_docs"],
           launches=n_launch, device_dispatches=stats["device_dispatches"],
           engine=stats, breaker=breaker, scalar_answered=scalar_n,
-          stage_ms=stage_ms, traced_aio_http=traced)
+          stage_ms=stage_ms, scheduler_metrics=sched_metrics,
+          traced_aio_http=traced)
     if bad:
         raise AssertionError(f"service answers differ from the CPU "
                              f"fronts' at {bad}")
@@ -1259,25 +1376,213 @@ def service_phase(seed: int, docs: list, kernels, smi: str,
         raise AssertionError(f"service: {n_launch} kernel launches over "
                              f"{stats['device_dispatches']} device "
                              "dispatches; want one launch a dispatch")
-    # every launch of the traced lane must be in the trace as a launch
-    # call, and no other launch or kernel: late in the smoke the trace
-    # drops the device records of a lane's first flushes (PERF.md
-    # section 7), so the kernel events may fall short, never exceed
-    if not (traced["launches"] == traced["launch_calls"] > 0 and
-            0 < traced["fused_tote_traced"] <= traced["launches"]) or \
-            traced["other_kernels"]:
-        raise AssertionError(
-            f"service trace: {traced['launches']} launches, "
-            f"{traced['launch_calls']} launch calls, "
-            f"{traced['fused_tote_traced']} traced fused_tote launches and "
-            f"{traced['other_kernels']} other kernels "
-            f"{traced['other_kernel_names']}; want every launch traced")
+    check_trace("service trace", traced)
+    # 203: a document whose language has no name (handlers.go rule)
+    if any(m["status"] not in (200, 203) or not m["answers_equal"] or
+           m["tier_mixed"] <= 0 or m["dedup"] < 200
+           for m in sched_metrics.values()):
+        raise AssertionError(f"service: the duplicate request or the "
+                             f"scheduler series: {sched_metrics}")
     if any(b != "closed" for b in breaker.values()) or scalar_n:
         raise AssertionError(f"service: breaker {breaker}, {scalar_n} "
                              "requests answered by the scalar engine")
     if phase_s >= 60:
         raise AssertionError(f"service phase took {phase_s:.1f} s")
     return n_launch
+
+
+# -- the engine's stream scheduler ---------------------------------------------
+
+SCHED_DEPTHS = (1, 2, 3)
+SCHED_LONGDOC = ("on", "off")   # on: 1024-slot sub-packs (the reference)
+SCHED_PASSES = 5             # timed passes a configuration, alternating
+SCHED_DUP_SHARE = 0.3        # positions the duplicate-heavy input copies
+SCHED_KEYS = ("tier_short_dispatches", "tier_mid_dispatches",
+              "tier_long_dispatches", "tier_mixed_dispatches",
+              "tier_longdoc_dispatches", "dedup_docs", "longdoc_split_docs",
+              "longdoc_subdocs", "retry_lane_dispatches",
+              "retry_offtier_docs", "device_dispatches")
+
+
+def scheduler_inputs(docs: list, seed: int) -> dict:
+    """The mix, and the mix with a seeded SCHED_DUP_SHARE of its
+    positions replaced by copies of other documents."""
+    rng = random.Random(seed + 5)
+    dup = list(docs)
+    for p in rng.sample(range(len(docs)), int(len(docs) * SCHED_DUP_SHARE)):
+        dup[p] = docs[rng.randrange(len(docs))]
+    return {"mix": docs, "dup_heavy": dup}
+
+
+def scheduler_reference(inputs: dict) -> dict:
+    """Worker process: detect_codes answers and detect_many rows of the
+    port's engine on the CPU (device="cpu", the plain scorer; the
+    default depth and long-doc lane) for each scheduler input."""
+    torch.set_num_threads(2)
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    eng = NgramBatchEngine(device="cpu")
+    return {name: (eng.detect_codes(d), answer_rows(eng.detect_many(d)))
+            for name, d in inputs.items()}
+
+
+class LaneWires:
+    """Keeps a copy of the largest wire (by chunk rows) each lane of the
+    engines launched inside the block."""
+
+    def __init__(self, engines):
+        self.engines = list(engines)
+        self.largest: dict = {}
+
+    def __enter__(self):
+        for eng in self.engines:
+            def launch(cb, lane="main", full_out=False, _orig=eng._launch):
+                best = self.largest.get(lane)
+                if best is None or cb.wire["cnsl"].size > \
+                        best["cnsl"].size:
+                    self.largest[lane] = {k: np.array(v)
+                                          for k, v in cb.wire.items()}
+                return _orig(cb, lane, full_out)
+            eng._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        for eng in self.engines:
+            del eng._launch
+        return False
+
+
+def pipe_counts(eng) -> dict:
+    """The engine's cumulative pipeline and staging-ring counters."""
+    pl, ring = eng.pipeline_stats(), eng.staging_stats()
+    return {"pack_ms_total": pl["pack_ms_total"],
+            "pack_ms_overlapped": pl["pack_ms_overlapped"],
+            "longdoc_chunks": pl["longdoc_chunks"], "hits": ring["hits"],
+            "misses": ring["misses"],
+            "pending_releases": ring["pending_releases"]}
+
+
+def scheduler_phase(inputs: dict, want: dict, kernels, dt, dev, smi: str,
+                    tables, reg) -> tuple:
+    """Phase `scheduler`: detect_codes and detect_many through the
+    engine's stream scheduler on the card, for each input at depths
+    SCHED_DEPTHS with the long-doc lane on (the reference's default;
+    the port's is off) and off. Answers
+    must be identical across every configuration and equal to the CPU
+    reference (`want`, from scheduler_reference); each call's kernel
+    launches must equal its device dispatches; retry_offtier_docs and
+    the staging ring's pending-event releases must be 0, its hits above
+    0 at depth >= 2. Docs/s is the median of SCHED_PASSES detect_codes
+    passes a configuration, the configurations taking turns; the
+    pack-overlap ratio and the ring's hits and misses count those
+    passes of each input alone. One
+    depth-2 pass runs under torch.profiler (check_trace), and the kernel
+    is held against its plain version on the largest long-doc and
+    retry-lane wires, word1 and full output, bit for bit. The card's
+    part must take under 60 s. Returns (kernel launches made, the
+    largest |kernel - plain| difference)."""
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.ops.score import (score_chunks_plain,
+                                                       wire_to_device)
+    t_phase = time.monotonic()
+    configs = [(d, ld) for d in SCHED_DEPTHS for ld in SCHED_LONGDOC]
+    engines = {c: NgramBatchEngine(
+        tables, reg, device=dev, pipeline_depth=c[0],
+        longdoc_chunk_slots=1024 if c[1] == "on" else 0)
+        for c in configs}
+    n_launch = 0
+    out: dict = {}
+    times: dict = {}
+    pipe: dict = {}
+    bad: list = []
+    with LaneWires(engines.values()) as lanes:
+        # round 0 is also the check: answers, counters, detect_many
+        for rnd in range(SCHED_PASSES):
+            for name, docs in inputs.items():
+                for c, eng in engines.items():
+                    key = f"{name}/depth{c[0]}/longdoc-{c[1]}"
+                    before = eng.stats_snapshot()
+                    pipe0 = pipe_counts(eng)
+                    kernels.launches = 0
+                    t0 = time.perf_counter()
+                    codes = eng.detect_codes(docs)
+                    torch.cuda.synchronize()
+                    times.setdefault(key, []).append(
+                        time.perf_counter() - t0)
+                    launched = kernels.launches
+                    n_launch += launched
+                    after = eng.stats_snapshot()
+                    counts = {k: after[k] - before[k] for k in SCHED_KEYS}
+                    acc = pipe.setdefault(key, dict.fromkeys(pipe0, 0))
+                    for k, v in pipe_counts(eng).items():
+                        acc[k] += v - pipe0[k]
+                    if launched != counts["device_dispatches"] or \
+                            counts["retry_offtier_docs"]:
+                        bad.append((key, rnd, launched, counts))
+                    if rnd:
+                        continue
+                    kernels.launches = 0
+                    rows = answer_rows(eng.detect_many(docs))
+                    n_launch += kernels.launches
+                    if codes != want[name][0] or rows != want[name][1]:
+                        bad.append((key, "answers"))
+                    out[key] = {"launches": launched, **counts}
+    for key, ts in times.items():
+        name, depth, ld = key.split("/")
+        c = (int(depth[5:]), ld[8:])
+        pl = engines[c].pipeline_stats()
+        ring = engines[c].staging_stats()
+        # this input's detect_codes passes only (an engine serves both)
+        acc = pipe[key]
+        out[key].update(
+            docs_per_s=len(inputs[name]) / statistics.median(ts),
+            pass_s=ts, overlap_ratio=round(
+                acc["pack_ms_overlapped"] / acc["pack_ms_total"], 4)
+            if acc["pack_ms_total"] else 0.0,
+            pack_ms_total=round(acc["pack_ms_total"], 3),
+            longdoc_chunks=acc["longdoc_chunks"],
+            staging_hits=acc["hits"], staging_misses=acc["misses"],
+            pending_releases=acc["pending_releases"],
+            inflight=pl["inflight"], staging_occupancy=ring["occupancy"])
+        if acc["pending_releases"] or ring["pending_releases"] or \
+                pl["inflight"] or ring["occupancy"] or \
+                (c[0] >= 2 and not acc["hits"]):
+            bad.append((key, "ring", acc, ring, pl["inflight"]))
+    eng2 = engines[(2, "on")]
+    quiesce(kernels)
+    traced = device_busy(lambda: eng2.detect_codes(inputs["mix"]),
+                         count=lambda: kernels.launches)
+    n_launch += traced["launches"]
+    phase_s = time.monotonic() - t_phase
+    # the kernel against its plain version on the new wires
+    err = 0
+    held = {}
+    for lane in ("longdoc", "retry"):
+        wire = lanes.largest.get(lane)
+        if wire is None:
+            bad.append((lane, "no wire"))
+            continue
+        w = wire_to_device(wire, dev)
+        for full in (False, True):
+            got = kernels.score_chunks(dt, w, full_out=full)
+            ref = score_chunks_plain(dt, w, full_out=full)
+            torch.cuda.synchronize()
+            if got.numel():
+                err = max(err, int((got.to(torch.int64) -
+                                    ref.to(torch.int64)).abs().max()))
+            if not torch.equal(got, ref):
+                bad.append((lane, "kernel != plain", full))
+        held[lane] = wire_shape_of(wire)
+    phase("scheduler", card=smi, docs={k: len(v) for k, v in inputs.items()},
+          unique_docs={k: len(set(v)) for k, v in inputs.items()},
+          configs=out, cpu_equal=not any(b[-1] == "answers" for b in bad),
+          held_wires=held, max_abs_err=err, phase_s=phase_s,
+          traced_depth2_mix=traced)
+    if bad:
+        raise AssertionError(f"scheduler: {bad[:6]}")
+    check_trace("scheduler trace", traced)
+    if phase_s >= 60:
+        raise AssertionError(f"scheduler phase took {phase_s:.1f} s")
+    return n_launch, err
 
 
 def main() -> int:
@@ -1394,9 +1699,9 @@ def main() -> int:
     launch_k: list = []
     engine_launch = eng._launch
 
-    def recorded_launch(cb):
+    def recorded_launch(cb, *a, **k):
         launch_k.append(int(cb.wire["k_iota"].shape[0]))
-        return engine_launch(cb)
+        return engine_launch(cb, *a, **k)
 
     eng._launch = recorded_launch
     kernels.launches = 0
@@ -1410,11 +1715,13 @@ def main() -> int:
         raise AssertionError(f"main path drove {n_docs} docs, want 4096")
     if launches <= 0:
         raise AssertionError("main path never launched the kernel")
-    if launches != len(launch_k) or set(launch_k) != set(K_BUCKETS):
-        raise AssertionError(f"{launches} kernel launches over dispatches "
+    stats = eng.stats_snapshot()
+    if launches != len(launch_k) or set(launch_k) != set(K_BUCKETS) or \
+            launches != stats["device_dispatches"]:
+        raise AssertionError(f"{launches} kernel launches over "
+                             f"{stats['device_dispatches']} dispatches "
                              f"at K {launch_k}, want one per dispatch and "
                              f"every K of {list(K_BUCKETS)}")
-    stats = eng.stats_snapshot()
 
     cpu = NgramBatchEngine(tables, reg, device="cpu")
     for k, g in groups.items():
@@ -1434,6 +1741,7 @@ def main() -> int:
     phase("main", docs=n_docs, chars=sum(len(d) for d, _ in flat),
           groups={str(k): len(g) for k, g in groups.items()},
           launch_k=launch_k, launches=launches, stats=stats,
+          pipeline=eng.pipeline_stats(), staging=eng.staging_stats(),
           cpu_equal=True, scalar_sample_equal=len(sample),
           first_run_s=round(main_s, 3))
 
@@ -1493,15 +1801,12 @@ def main() -> int:
           e2e_mixed_s=e2e_mixed,
           e2e_mixed_docs_per_s=len(docs) / statistics.median(e2e_mixed))
     phase("breakdown", **first_pass_breakdown(eng, groups, native))
-    traced = {"per_bucket": device_busy(run_groups),
-              "mixed": device_busy(run_mixed)}
+    count = lambda: kernels.launches                          # noqa: E731
+    traced = {"per_bucket": device_busy(run_groups, count),
+              "mixed": device_busy(run_mixed, count)}
     phase("trace", **traced)
     for name, t in traced.items():
-        if t["other_kernels"] or not t["fused_tote_traced"]:
-            raise AssertionError(
-                f"{name} trace: {t['fused_tote_traced']} fused_tote "
-                f"launches and {t['other_kernels']} other kernels "
-                f"{t['other_kernel_names']}; a dispatch is one launch")
+        check_trace(f"{name} trace", t)
 
     # -- accuracy paths: hinted, HTML, chunk vectors, spans ------------------
     from language_detector_tpu_torch.hints import CLDHints
@@ -1518,15 +1823,19 @@ def main() -> int:
     samples = scalar_samples(paths, len(span_docs), args.seed)
     # the CPU run of every path and the scalar engine's answers for the
     # samples, in worker processes: host work that no timing reads
+    # (and the scheduler phase's CPU answers)
+    sched_inputs = scheduler_inputs(docs, args.seed)
     t0 = time.monotonic()
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(len(paths) + 1,
+    with concurrent.futures.ProcessPoolExecutor(len(paths) + 2,
                                                 mp_context=ctx) as pool:
         cpu_futs = {name: pool.submit(cpu_reference, name, inputs)
                     for name in paths}
         scalar_fut = pool.submit(scalar_reference, samples, inputs)
+        sched_fut = pool.submit(scheduler_reference, sched_inputs)
         cpu_ref = {name: f.result() for name, f in cpu_futs.items()}
         scalar_ref = scalar_fut.result()
+        sched_ref = sched_fut.result()
     cpu_s = time.monotonic() - t0
 
     # the kernel against its plain version on every wire those paths sent
@@ -1606,7 +1915,7 @@ def main() -> int:
         cpu_answers, cpu_recs = cpu_ref[name]
         if len(cpu_recs) != len(rec.records) or any(
                 not wires_equal(a["wire"], b["wire"])
-                for a, b in zip(cpu_recs, rec.records)):
+                for a, b in zip(cpu_recs, rec.sorted_records())):
             raise AssertionError(f"{name}: the card's wires differ from the "
                                  "CPU run's")
         bad = [i for i, (a, b) in enumerate(zip(got, cpu_answers))
@@ -1636,8 +1945,14 @@ def main() -> int:
               scalar_cjk_rows_differ=cjk_rows_differ,
               docs_per_s=n_items / tr["wall_s"], split=split, trace=tr)
 
+    # -- scheduler: dedup, tier lanes, long-doc lane, retry lane, depth -----
+    n_sched, sched_err = scheduler_phase(sched_inputs, sched_ref, kernels, dt,
+                                         dev, smi, tables, reg)
+    launches += n_sched
+    max_err = max(max_err, sched_err)
+
     # -- service: both fronts on the card, HTTP and unix-socket lanes --------
-    launches += service_phase(args.seed, docs, kernels, smi)
+    launches += service_phase(args.seed, docs, kernels, smi, answer)
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",

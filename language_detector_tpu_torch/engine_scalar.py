@@ -866,13 +866,15 @@ def span_coverage_records(text: str, bounds: list,
     return spans
 
 
-def split_for_spans(text: str, tables, split_slots: int):
+def split_for_spans(text: str, tables, split_slots: int,
+                    segment=None):
     """(subs, bounds) for the span surfaces: the long-doc lane's
     span-aligned split (the only exact split points), or one whole-doc
-    span when the document is under budget / refuses to split."""
+    span when the document is under budget / refuses to split.
+    segment: split_longdoc's span scan (None: the Python scan)."""
     from .preprocess.pack import split_longdoc
     got = split_longdoc(text, tables, max(split_slots, 1),
-                        want_bounds=True)
+                        want_bounds=True, segment=segment)
     if not got:
         return [text], [(0, len(text))]
     return got

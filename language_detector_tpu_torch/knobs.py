@@ -204,13 +204,28 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "and refuses a mismatched frame with a typed 400 instead of "
        "scoring flipped bytes (ldt_integrity_crc_total). Both sides "
        "of the shm lane must agree on this knob."),
-    # -- per-span sub-documents (models/ngram.py) ---------------------
-    _k("LDT_LONGDOC_CHUNK_SLOTS", "int", 1024,
-       "Sub-document slot budget of the engine's per-span path "
-       "(detect_spans): documents are cut at script-span boundaries "
-       "into sub-documents of about this many slots, scored in one "
-       "flat pack and merged back into one summary. 0 means the "
-       "scalar engine's SPAN_SPLIT_SLOTS."),
+    # -- dispatch pipeline & long-doc lane (models/ngram.py) ----------
+    _k("LDT_PIPELINE_DEPTH", "int", 2,
+       "Dispatch-pipeline depth of the engine's stream scheduler: at "
+       "most depth+1 jobs (tier-lane slices, long-doc sub-packs, "
+       "retry-lane bins) outstanding on the engine's CUDA streams while "
+       "the main thread packs the next one, each job's wire copied "
+       "from a pinned staging lease. 1 = strictly serial "
+       "pack->score->epilogue, one job at a time; 2 (default) keeps "
+       "jobs scoring while the next packs. Answers do not depend on "
+       "it."),
+    _k("LDT_LONGDOC_CHUNK_SLOTS", "int", 0,
+       "Long-document lane sub-pack size: documents past 4096 "
+       "estimated slots (the engine's LONGDOC_SPLIT_SLOTS) are cut at "
+       "script-span boundaries into sub-documents of about this many "
+       "slots, scored as ordinary packs and merged back into one "
+       "summary; also the sub-document budget of the per-span path "
+       "(detect_spans). 0 (default) disables the lane: oversized docs "
+       "ride the long tier unsplit, and detect_spans splits at the "
+       "scalar engine's SPAN_SPLIT_SLOTS. The reference defaults to "
+       "1024; on an H100 the lane gives the same answers at about "
+       "1.6x the time a call (the kernel gains nothing from the "
+       "smaller wires), so the port leaves it off."),
     # -- accuracy plane (models/ngram.py, both fronts) ----------------
     _k("LDT_SPANS", "bool", False,
        "Per-span language output: detector results carry a spans list "

@@ -20,7 +20,7 @@ import numpy as np
 
 from ..registry import Registry, ULSCRIPT_LATIN
 from ..tables import ScoringTables
-from ..preprocess.pack import PackedBatch
+from ..preprocess.pack import PackedBatch, SpanExtent
 
 _DIR = Path(__file__).parent
 # own library names: the reference package loads libldtpack.so and
@@ -33,22 +33,63 @@ _init_keepalive: list = []
 _lock = threading.Lock()
 
 
+@contextlib.contextmanager
+def build_lock(path: Path):
+    """Exclusive lock on `path` across processes (flock; the kernel
+    drops it when its holder exits). Loaders take it around their
+    check-and-build, so processes that start on one checkout at once
+    (test workers, spawned references) build a library once and never
+    load one that another process is still writing."""
+    import fcntl
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+_BUILD_LOCK = _DIR / "libldtpack_torch.lock"
+
+
+def _install_built(tmp: str, final: Path) -> None:
+    """Move a library build.sh wrote under a temporary name (and its
+    .host sidecar) into place; os.replace is atomic, so a reader sees
+    the old file or the new one, never a partial one."""
+    side = _DIR / f"{tmp}.host"
+    if side.exists():
+        os.replace(side, final.with_suffix(".so.host"))
+    os.replace(_DIR / tmp, final)
+
+
 def _build() -> bool:
+    """build.sh under temporary names, then both libraries moved into
+    place. The caller holds _BUILD_LOCK."""
+    tag = f".{os.getpid()}.tmp"
+    so_tmp, glue_tmp = _SO.name + tag, _GLUE_SO.name + tag
     try:
-        subprocess.run([str(_DIR / "build.sh"), _SO.name], check=True,
+        subprocess.run([str(_DIR / "build.sh"), so_tmp], check=True,
                        capture_output=True, timeout=120,
-                       env={**os.environ, "LDT_GLUE_OUT": _GLUE_SO.name})
+                       env={**os.environ, "LDT_GLUE_OUT": glue_tmp})
+        if (_DIR / glue_tmp).exists():
+            _install_built(glue_tmp, _GLUE_SO)
+        _install_built(so_tmp, _SO)
         return _SO.exists()
     except Exception:
         return False
+    finally:
+        for name in (so_tmp, glue_tmp):
+            for leftover in (_DIR / name, _DIR / f"{name}.host"):
+                leftover.unlink(missing_ok=True)
 
 
 _SYMBOLS = ("ldt_init", "ldt_pack_batch", "ldt_init_tables",
             "ldt_pack_flat_begin", "ldt_pack_flat_finish",
             "ldt_pack_flat_free", "ldt_epilogue_flat", "ldt_init_detect",
             "detect_language", "detect_language_n",
-            "ldt_detect_one_full", "ldt_detect_batch_codes")
-_ABI_VERSION = 10  # must match packer.cc ldt_abi_version()
+            "ldt_detect_one_full", "ldt_detect_batch_codes",
+            "ldt_span_extents")
+_ABI_VERSION = 11  # must match packer.cc ldt_abi_version()
 
 
 def _try_load_all():
@@ -69,6 +110,7 @@ def _try_load_all():
         lib.detect_language_n.argtypes = [ctypes.c_char_p,
                                           ctypes.c_int32]
         lib.ldt_detect_one_full.restype = ctypes.c_int32
+        lib.ldt_span_extents.restype = ctypes.c_int32
         return lib
     except (OSError, AttributeError):
         return None
@@ -125,14 +167,14 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = _try_load_all() if _SO.exists() and _isa_matches() else None
-        if lib is None:
-            # missing or stale: rebuild once, then retry
-            try:
-                _SO.unlink(missing_ok=True)
-            except OSError:
-                pass
-            lib = _try_load_all() if _build() else None
+        with build_lock(_BUILD_LOCK):
+            lib = (_try_load_all() if _SO.exists() and _isa_matches()
+                   else None)
+            if lib is None:
+                # missing or stale: rebuild once (replacing the file in
+                # place, never unlinking one another process may be
+                # loading), then retry
+                lib = _try_load_all() if _build() else None
         _lib = lib if lib is not None else False
         return _lib
 
@@ -179,39 +221,45 @@ def _load_glue():
     global _glue
     if _glue is not None:
         return _glue or None
-    with _lock:
+    with _lock, build_lock(_BUILD_LOCK):
         if _glue is not None:
             return _glue or None
         so = _GLUE_SO
-        try:
-            fresh = (so.exists()
-                     and so.stat().st_mtime >=
-                     (_DIR / "pyglue.c").stat().st_mtime
-                     and _sidecar_ok(so))
-        except OSError:
-            fresh = False
-        g = _try_load_glue(so) if fresh else None
+
+        def fresh() -> bool:
+            try:
+                return (so.exists()
+                        and so.stat().st_mtime >=
+                        (_DIR / "pyglue.c").stat().st_mtime
+                        and _sidecar_ok(so))
+            except OSError:
+                return False
+
+        g = _try_load_glue(so) if fresh() else None
         if g is None:
             import sysconfig
             incdir = sysconfig.get_paths()["include"]
             if (Path(incdir) / "Python.h").exists():
+                tmp = f"{so.name}.{os.getpid()}.tmp"
                 try:
                     subprocess.run(
                         [str(_DIR / "build.sh"), "--glue-only"],
                         check=True, capture_output=True, timeout=120,
                         env={**os.environ, "LDT_PYINC": incdir,
-                             "LDT_GLUE_OUT": _GLUE_SO.name})
+                             "LDT_GLUE_OUT": tmp})
+                    if (_DIR / tmp).exists():
+                        _install_built(tmp, so)
                     # re-verify freshness: build.sh exits 0 even when
                     # it could not compile, and loading the stale
                     # binary the check above just rejected would
                     # bypass the mtime/ISA protection entirely
-                    if (so.exists()
-                            and so.stat().st_mtime >=
-                            (_DIR / "pyglue.c").stat().st_mtime
-                            and _sidecar_ok(so)):
+                    if fresh():
                         g = _try_load_glue(so)
                 except Exception:  # noqa: BLE001 - fall back quietly
                     g = None
+                finally:
+                    (_DIR / tmp).unlink(missing_ok=True)
+                    (_DIR / f"{tmp}.host").unlink(missing_ok=True)
         _glue = g if g is not None else False
         return _glue or None
 
@@ -503,9 +551,8 @@ class ChunkBatch:
     ranges: dict | None = None
     # staging-ring lease backing the wire's bucketed arrays (None when
     # the pack allocated fresh arrays). The OWNER of the dispatch calls
-    # release() once no launch can read the wire again — after the
-    # result future resolves (direct path) or the pool future settles
-    # (pooled path: hedges/failovers may re-read the wire until then).
+    # release() once nothing can read the wire again: after its result
+    # is back on the host and unpacked against cmeta.
     staging: "StagingLease | None" = None
 
     def release_staging(self) -> None:
@@ -516,18 +563,36 @@ class ChunkBatch:
 
 class StagingLease:
     """One checked-out set of staging arrays; release() returns it to
-    its ring exactly once (idempotent, thread-safe via the ring lock)."""
+    its ring exactly once (idempotent, thread-safe via the ring lock).
 
-    __slots__ = ("ring", "key", "arrays", "_done")
+    `copied` is the CUDA event recorded after the last asynchronous
+    copy that reads the lease (ops/score.py wire_to_device). release()
+    hands the arrays back only once that event has completed: a
+    release that finds it still pending waits for it and is counted
+    (StagingRing.stats "pending_releases"), so the engine can show it
+    never releases a lease under a copy in flight."""
+
+    __slots__ = ("ring", "key", "arrays", "copied", "_done")
 
     def __init__(self, ring: "StagingRing", key: tuple, arrays: dict):
         self.ring = ring
         self.key = key
         self.arrays = arrays
+        self.copied = None
         self._done = False
 
     def release(self) -> None:
+        ev, self.copied = self.copied, None
+        if ev is not None and not ev.query():
+            self.ring._note_pending_release()
+            ev.synchronize()
         self.ring._release(self)
+
+
+# numpy dtype -> the torch dtype of the same width that carries its bits
+# in a pinned host tensor (torch's unsigned 16/32-bit support is partial)
+_PIN_CARRIERS = {np.dtype(np.uint8): "uint8", np.dtype(np.uint16): "int16",
+                 np.dtype(np.uint32): "int32"}
 
 
 class StagingRing:
@@ -537,38 +602,48 @@ class StagingRing:
     The pipelined engine packs batch N+1 while batch N scores; without a
     ring every pack allocates (and the allocator touches) megabytes of
     fresh pages per dispatch. Arrays are keyed by the padded shape
-    bucket (D, N, Gs, whacked) — the same small ladder the compile
-    cache keys on — so steady state allocates nothing: acquire() hands
-    back a zeroed lease from the free list, the pack writes it, the
-    dispatch reads it, and the engine releases it once the result
-    future settles. Over-depth demand (ring empty) falls back to a
-    fresh allocation that joins the ring on release, up to `cap` sets
-    per shape; beyond that the arrays are simply dropped.
+    bucket (D, N, Gs, whacked), so steady state allocates nothing:
+    acquire() hands back a zeroed lease from the free list, the pack
+    writes it, the dispatch copies it to the device, and the engine
+    releases it once its result is back on the host. Over-depth demand
+    (ring empty) allocates a fresh set that joins the ring on release,
+    up to `cap` sets per shape; beyond that the arrays are dropped.
 
-    JAX copies host numpy inputs into device buffers synchronously
-    during the jitted call, so a released lease can never alias live
-    device memory; the pool's settled accounting guarantees no
-    host-side reader (hedge/failover re-dispatch) is left either."""
+    pinned=True (the CUDA engine): every array is a numpy view of a
+    page-locked torch tensor, so the wire copies to the card
+    asynchronously on the job's stream and the lease waits for that
+    copy before it is reused (StagingLease.release). A failed pinned
+    allocation raises; there is no pageable stand-in. pinned=False
+    (the CPU engine) holds plain numpy arrays."""
 
     _KEYS = ("idx", "cnsl", "cmeta", "cscript", "cwhack")
 
-    def __init__(self, cap: int = 4):
+    def __init__(self, cap: int = 4, pinned: bool = False):
         self.cap = cap
+        self.pinned = pinned
         self._free: dict = {}      # key -> list[dict of arrays]
         self._out = 0              # leases currently checked out
         self._hits = 0             # acquires served from the free list
         self._misses = 0           # acquires that had to allocate
-        self._lock = __import__("threading").Lock()
+        self._pending = 0          # releases that found a copy in flight
+        self._lock = threading.Lock()
 
-    @staticmethod
-    def _alloc(key: tuple) -> dict:
+    def _zeros(self, shape: tuple, dtype) -> np.ndarray:
+        if not self.pinned:
+            return np.zeros(shape, dtype)
+        import torch
+        carrier = getattr(torch, _PIN_CARRIERS[np.dtype(dtype)])
+        t = torch.zeros(shape, dtype=carrier, pin_memory=True)
+        return t.numpy().view(dtype)   # the view keeps the tensor alive
+
+    def _alloc(self, key: tuple) -> dict:
         D, N, Gs, whacked = key
-        return dict(idx=np.zeros((D, N), np.uint16),
-                    cnsl=np.zeros((D, Gs), np.uint8),
-                    cmeta=np.zeros((D, Gs), np.uint32),
-                    cscript=np.zeros((D, Gs), np.uint8),
-                    cwhack=np.zeros((D, Gs if whacked else 1),
-                                    np.uint16))
+        return dict(idx=self._zeros((D, N), np.uint16),
+                    cnsl=self._zeros((D, Gs), np.uint8),
+                    cmeta=self._zeros((D, Gs), np.uint32),
+                    cscript=self._zeros((D, Gs), np.uint8),
+                    cwhack=self._zeros((D, Gs if whacked else 1),
+                                       np.uint16))
 
     def acquire(self, D: int, N: int, Gs: int,
                 whacked: bool) -> StagingLease:
@@ -582,11 +657,20 @@ class StagingRing:
             else:
                 self._misses += 1
         if arrays is None:
-            arrays = self._alloc(key)
+            try:
+                arrays = self._alloc(key)
+            except BaseException:
+                with self._lock:
+                    self._out -= 1
+                raise
         else:
             for a in arrays.values():
                 a.fill(0)  # pack relies on zero-initialized padding
         return StagingLease(self, key, arrays)
+
+    def _note_pending_release(self) -> None:
+        with self._lock:
+            self._pending += 1
 
     def _release(self, lease: StagingLease) -> None:
         with self._lock:
@@ -603,7 +687,8 @@ class StagingRing:
             return {"occupancy": self._out,
                     "hits": self._hits,
                     "misses": self._misses,
-                    "shapes": len(self._free)}
+                    "shapes": len(self._free),
+                    "pending_releases": self._pending}
 
 
 def _next_pow2_min(n: int, lo: int) -> int:
@@ -899,6 +984,54 @@ def detect_one_native(text: str, tables: ScoringTables, reg: Registry):
     if not ok:
         return None  # adversarial budget overflow: caller goes scalar
     return list(out)
+
+
+def span_extents_native(texts: list[str], tables: ScoringTables,
+                        reg: Registry,
+                        n_threads: int = 0) -> list[list[SpanExtent]]:
+    """preprocess.pack.span_extents for each text, through the packer's
+    own C++ segmentation (ldt_span_extents: the GIL released, the texts
+    shared among n_threads threads; 0 = one a core up to 8). The
+    long-doc lane's span scan. Raises when the library is unavailable."""
+    lib = _load()
+    if not lib:
+        raise RuntimeError("native library unavailable")
+    if not texts:
+        return []
+    B = len(texts)
+    blob, bounds = _marshal_texts(texts)
+    lens = np.diff(bounds)
+    # a span holds at least one letter; its buffer at most a leading
+    # space, 4 bytes a source letter byte (lowercasing can lengthen a
+    # letter) and one separator a letter run
+    ext_off = np.zeros(B + 1, np.int64)
+    np.cumsum(lens + 1, out=ext_off[1:])
+    byte_off = np.zeros(B + 1, np.int64)
+    np.cumsum(6 * lens + 16, out=byte_off[1:])
+    ext = np.empty(4 * int(ext_off[-1]), np.int32)
+    out = np.empty(int(byte_off[-1]), np.uint8)
+    n_spans = np.empty(B, np.int32)
+    if n_threads <= 0:
+        n_threads = min(8, os.cpu_count() or 1)
+    with _gate.reading(tables, reg):
+        lib.ldt_span_extents(
+            _ptr(blob, np.uint8), _ptr(bounds, np.int64), ctypes.c_int32(B),
+            ctypes.c_int32(n_threads), _ptr(ext_off, np.int64),
+            _ptr(ext, np.int32), _ptr(byte_off, np.int64),
+            _ptr(out, np.uint8), _ptr(n_spans, np.int32))
+    if (n_spans < 0).any():
+        raise RuntimeError("ldt_span_extents failed")
+    res = []
+    for b, k in enumerate(n_spans.tolist()):
+        e0, off = 4 * int(ext_off[b]), int(byte_off[b])
+        spans = []
+        for s0, s1, script, tb in \
+                ext[e0:e0 + 4 * k].reshape(k, 4).tolist():
+            spans.append(SpanExtent(s0, s1, script,
+                                    out[off:off + tb].tobytes()))
+            off += tb
+        res.append(spans)
+    return res
 
 
 def detect_batch_codes_native(texts: list[str], tables: ScoringTables,

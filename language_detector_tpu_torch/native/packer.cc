@@ -12,6 +12,7 @@
 // Build: native/build.sh  ->  libldtpack.so (loaded via ctypes).
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -495,10 +496,12 @@ void squeeze_span(Span* sp) {
   respan(sp, cheap_squeeze_inplace(sp->buf.data(), sp->text_bytes));
 }
 
-void segment_text(const uint8_t* text, int text_len, SegScratch* ss,
-                  bool collect_src = false) {
+// Returns the number of codepoints decoded (ss->byte_before[0..n] holds
+// each one's byte offset, byte_before[n] the end).
+int segment_text(const uint8_t* text, int text_len, SegScratch* ss,
+                 bool collect_src = false) {
   ss->n_spans = 0;
-  if (text_len == 0) return;
+  if (text_len == 0) return 0;
   // Single fused pass: decode + script/lower classification + byte
   // accounting (the decode increment IS the codepoint's u8 length for
   // the valid UTF-8 a Python str encodes to, so no second u8len pass)
@@ -562,7 +565,7 @@ void segment_text(const uint8_t* text, int text_len, SegScratch* ss,
     }
     byte_before[n] = i;
   }
-  if (n == 0) return;
+  if (n == 0) return 0;
   const int64_t total_bytes = byte_before[n];
 
   int i = 0;
@@ -611,6 +614,7 @@ void segment_text(const uint8_t* text, int text_len, SegScratch* ss,
       build_span(cur, spanscript, ss->alloc_span(),
                  collect_src ? &cur_src : nullptr);
   }
+  return n;
 }
 
 // ---- per-span candidate records (preprocess/pack.py) ----
@@ -1790,7 +1794,7 @@ extern "C" {
 // Bumped on ANY change to the exported function signatures or wire
 // layouts; the Python loader refuses (and rebuilds) on mismatch so a
 // stale .so can never silently corrupt results across an ABI change.
-int32_t ldt_abi_version() { return 10; }
+int32_t ldt_abi_version() { return 11; }
 
 // Phase 1: pack + compact. Per-doc outputs (direct_adds [B, D_cap, 3],
 // text_bytes/fallback/squeezed/n_slots/n_chunks [B]) land in caller
@@ -2192,6 +2196,62 @@ void ldt_init(const uint8_t* script_of_cp, const uint32_t* lower_map,
               int32_t n_scripts, int32_t distinctbi_empty) {
   g = Ctx{script_of_cp, lower_map, cjk_prop, rtype, deflang, seed_lp,
           n_scripts, distinctbi_empty};
+}
+
+// Script spans of a batch of documents, for the long-doc lane's split
+// (preprocess/pack.py span_extents, over segment_text above). texts and
+// bounds as ldt_pack_batch. Document b writes its spans at
+// ext[4 * ext_off[b]...] (room for ext_off[b + 1] - ext_off[b] spans):
+// per span the source char index of its first letter, one past the
+// source char of its closing separator, its ULScript and its buffer
+// length text_bytes; the span buffers [0, text_bytes) go, concatenated,
+// to bytes[byte_off[b]...] (room up to byte_off[b + 1]). n_spans[b] is
+// the span count, or -1 when the tables are not installed or the room
+// is too small. Documents are taken by n_threads threads in turn.
+void ldt_span_extents(const uint8_t* texts, const int64_t* bounds,
+                      int32_t n_docs, int32_t n_threads,
+                      const int64_t* ext_off, int32_t* ext,
+                      const int64_t* byte_off, uint8_t* bytes,
+                      int32_t* n_spans) {
+  auto one = [&](int b) {
+    n_spans[b] = -1;
+    if (g.script_of_cp == nullptr) return;
+    static thread_local SegScratch seg;
+    seg.maybe_shrink();
+    const int n = segment_text(texts + bounds[b],
+                               (int)(bounds[b + 1] - bounds[b]), &seg,
+                               true);
+    if (seg.n_spans > ext_off[b + 1] - ext_off[b]) return;
+    const int64_t* bb = seg.byte_before.data();
+    // b2o holds source BYTE offsets, each the start of a codepoint
+    auto char_of = [&](int32_t off) {
+      return (int32_t)(std::lower_bound(bb, bb + n + 1, (int64_t)off) -
+                       bb);
+    };
+    int32_t* e = ext + 4 * ext_off[b];
+    int64_t used = byte_off[b];
+    for (int k = 0; k < seg.n_spans; k++) {
+      const Span& sp = seg.spans[k];
+      if (sp.b2o.size() < 2 || used + sp.text_bytes > byte_off[b + 1])
+        return;
+      e[4 * k] = char_of(sp.b2o[1]);
+      e[4 * k + 1] = char_of(sp.b2o.back()) + 1;
+      e[4 * k + 2] = sp.ulscript;
+      e[4 * k + 3] = sp.text_bytes;
+      std::memcpy(bytes + used, sp.buf.data(), sp.text_bytes);
+      used += sp.text_bytes;
+    }
+    n_spans[b] = seg.n_spans;
+  };
+  std::atomic<int> next{0};
+  auto work = [&]() {
+    for (int b; (b = next.fetch_add(1)) < n_docs;) one(b);
+  };
+  std::vector<std::thread> ts;
+  for (int t = 1; t < std::min(n_threads, n_docs); t++)
+    ts.emplace_back(work);
+  work();
+  for (auto& t : ts) t.join();
 }
 
 // texts: concatenated UTF-8 docs; bounds[i]..bounds[i+1] delimit doc i.

@@ -23,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from ..native import build_lock
 from .device_tables import DeviceTables
 from .score import score_chunks_plain
 
@@ -84,9 +85,13 @@ def _load():
     global _lib
     with _lock:
         if _lib is None:
-            if not LIB.exists() or \
-                    LIB.stat().st_mtime < SOURCE.stat().st_mtime:
-                build()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # one build per checkout: processes starting at once (test
+            # workers, spawned references) wait for the first one's
+            with build_lock(BUILD_DIR / "fused_tote.lock"):
+                if not LIB.exists() or \
+                        LIB.stat().st_mtime < SOURCE.stat().st_mtime:
+                    build()
             lib = ctypes.CDLL(str(LIB))
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn = lib.ldt_fused_tote

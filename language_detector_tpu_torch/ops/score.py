@@ -53,7 +53,18 @@ _WIRE_DTYPES = {np.dtype(np.uint16): np.int16,
 def wire_to_device(wire: dict, device) -> dict:
     """numpy flat wire (pack_chunks_native) -> dict of tensors on device.
     Unsigned planes keep their bits in the signed type of their width;
-    k_iota is replaced by the plain int K (its length is all it says)."""
+    k_iota is replaced by the plain int K (its length is all it says).
+
+    On a CUDA device every plane copies asynchronously on the caller's
+    current stream: planes that are pinned already (a staging lease's
+    arrays) copy straight from their pages, the others through a pinned
+    copy that PyTorch's host allocator keeps until the transfer has read
+    it. The dict then also holds "copied", a CUDA event recorded after
+    the last copy: the host arrays may be written again only once it has
+    completed (native.StagingLease.release waits for it). On the CPU
+    the tensors share the arrays' memory."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
     out = {}
     for name, a in wire.items():
         if name == "k_iota":
@@ -63,7 +74,17 @@ def wire_to_device(wire: dict, device) -> dict:
         view = _WIRE_DTYPES.get(a.dtype)
         if view is not None:
             a = a.view(view)
-        out[name] = torch.from_numpy(a).to(device)
+        t = torch.from_numpy(a)
+        if cuda:
+            if not t.is_pinned():
+                t = t.pin_memory()
+            out[name] = t.to(device, non_blocking=True)
+        else:
+            out[name] = t.to(device)
+    if cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        out["copied"] = ev
     return out
 
 

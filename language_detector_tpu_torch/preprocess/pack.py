@@ -15,6 +15,7 @@ traffic is short).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -111,9 +112,31 @@ def _maybe_multi_span(text: str, tables) -> bool:
     return len(text.encode("utf-8", "surrogatepass")) >= MAX_SPAN_PUT_BYTES
 
 
+class SpanExtent(NamedTuple):
+    """What split_longdoc reads of one script span: the source char
+    index of its first letter, one past the source char of its closing
+    separator (so text[start:end] holds the span), its ULScript, and its
+    buffer bytes [0, text_bytes)."""
+    start: int
+    end: int
+    ulscript: int
+    text: bytes
+
+
+def span_extents(text: str, tables: ScoringTables) -> list[SpanExtent]:
+    """segment_text's spans as SpanExtents (the Python scan; the native
+    packer's twin is native.span_extents_native)."""
+    return [SpanExtent(int(sp.src_idx[1]), int(sp.src_idx[-1]) + 1,
+                       sp.ulscript, sp.text)
+            for sp in segment_text(text, tables)]
+
+
 def split_longdoc(text: str, tables: ScoringTables,
                   max_slots: int,
-                  want_bounds: bool = False) -> list[str] | None:
+                  want_bounds: bool = False,
+                  segment: Callable[[str], list[SpanExtent]] | None = None,
+                  spans: list[SpanExtent] | None = None
+                  ) -> list[str] | None:
     """Split one oversized document into span-aligned sub-documents of
     about `max_slots` estimated slots each. Returns the sub-texts (>= 2,
     source-order slices of `text`), or None when the document cannot be
@@ -129,24 +152,27 @@ def split_longdoc(text: str, tables: ScoringTables,
     as the unsplit pack. Slices under the scanner's span cap are exact
     by construction (no soft-limit or truncation rule can fire inside
     them); larger slices are verified by re-segmentation and the whole
-    split is abandoned on any mismatch."""
-    from .segment import SOFT_SPAN_PUT_BYTES, segment_text
+    split is abandoned on any mismatch.
+
+    segment: the span scan, text -> SpanExtents; None runs the Python
+    scan (span_extents), the engine passes the native packer's. spans:
+    segment(text), when the caller has scanned the text already."""
+    from .segment import SOFT_SPAN_PUT_BYTES
     if max_slots <= 0 or est_slot_demand(text) <= max_slots:
         return None
     if not _maybe_multi_span(text, tables):
         return None
-    spans = segment_text(text, tables)
+    if segment is None:
+        def segment(t):
+            return span_extents(t, tables)
+    if spans is None:
+        spans = segment(text)
     if len(spans) < 2:
         return None
 
-    # source-char extent of each span (src_idx maps span-buffer bytes to
-    # source char indices; the final entry names the first char past the
-    # last letter run, so end is exclusive after +1 at end-of-input)
-    extents = []
-    for sp in spans:
-        if sp.src_idx is None or len(sp.src_idx) < 2:
-            return None
-        extents.append((int(sp.src_idx[1]), int(sp.src_idx[-1]) + 1))
+    # source-char extent of each span (the closing separator's source is
+    # the first char past the last letter run, so end is exclusive)
+    extents = [(sp.start, sp.end) for sp in spans]
 
     # greedy grouping toward the per-sub-doc char budget; a span bigger
     # than the budget (e.g. a scanner-capped 40KB run) is its own group
@@ -181,15 +207,12 @@ def split_longdoc(text: str, tables: ScoringTables,
             # the scanner's soft-limit / even-split rules could fire
             # inside a slice this big: verify the slice reproduces the
             # document's own spans, else refuse to split
-            re_spans = segment_text(sub, tables)
+            re_spans = segment(sub)
             if len(re_spans) != len(g):
                 return None
             for rs, i in zip(re_spans, g):
                 os_ = spans[i]
-                if rs.text_bytes != os_.text_bytes or \
-                        rs.ulscript != os_.ulscript or \
-                        not np.array_equal(rs.buf[:rs.text_bytes],
-                                           os_.buf[:os_.text_bytes]):
+                if rs.ulscript != os_.ulscript or rs.text != os_.text:
                     return None
         subs.append(sub)
         bounds.append((a, b))

@@ -30,22 +30,25 @@ import threading
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 
-from .. import faults, telemetry
+from .. import faults, knobs, telemetry
 from ..locks import make_lock
 from . import sharedcache
 from .admission import (DeadlineExceeded, FairScheduler,
                         note_deadline_expired)
 
 # concurrent flushes: one packing on the host while others launch or
-# finish on the card (each flush worker launches on its own CUDA stream)
+# finish on the card (the engine hands each job a stream of its own)
 _FLUSH_WORKERS = 3
 
 
 def flush_workers() -> int:
-    """Flush-worker count for both batchers: the reference's default
-    (its pipeline depth 2 plus one packing). The port has no device
-    pool and no deeper pipeline to widen it for."""
-    return _FLUSH_WORKERS
+    """Flush-worker count for both batchers: the fixed overlap depth,
+    widened when the dispatch pipeline runs deeper than the default
+    (LDT_PIPELINE_DEPTH jobs in flight plus one packing need as many
+    flush slots to stay full). The port has no device pool to widen it
+    for."""
+    return max(_FLUSH_WORKERS,
+               (knobs.get_int("LDT_PIPELINE_DEPTH") or 0) + 1)
 
 _MISS = object()  # cache sentinel: any real result (even None) differs
 

@@ -9,7 +9,9 @@ They import only torch, numpy and the port (no jax): the adversarial
 grids come from chip_smoke.py, which runs the same comparison and the
 main path end to end. The real-path wires are the ones the engine sends
 on its hinted (prior planes and whack rows), HTML, chunk-vector (full
-output) and span paths, recorded from a CPU engine.
+output) and span paths, recorded from a CPU engine. The scheduler cases
+drive the engine on the card: depth 2 against depth 1 and the CPU, and
+concurrent flushes sharing one engine's staging ring and streams.
 """
 from __future__ import annotations
 
@@ -118,3 +120,57 @@ def test_real_path_wires(cuda_dt, path):
             assert r["wire"]["cwhack"].shape[-1] > 1
         assert r["full_out"] == (path == "want-ranges")
         _assert_kernel_equals_plain(cuda_dt, r["wire"])
+
+
+@pytest.fixture(scope="module")
+def sched_docs():
+    return chip_smoke.build_docs(_eval_docs(), 20261017, 1500)
+
+
+@pytest.mark.cuda
+def test_scheduler_depth2_equals_depth1_and_cpu(cuda_dt, sched_docs):
+    """detect_codes and detect_many through the stream scheduler on the
+    card at depth 2 equal depth 1 on the card and the CPU engine; one
+    launch a device dispatch, every lease back, none released under a
+    copy in flight. The long-doc lane is on (the reference's 1024-slot
+    sub-packs), so its split documents are among them."""
+    want = NgramBatchEngine(device="cpu").detect_codes(sched_docs)
+    want_rows = chip_smoke.answer_rows(
+        NgramBatchEngine(device="cpu").detect_many(sched_docs))
+    for depth in (1, 2):
+        eng = NgramBatchEngine(device="cuda", pipeline_depth=depth,
+                               longdoc_chunk_slots=1024)
+        before = kernels.launches
+        assert eng.detect_codes(sched_docs) == want
+        assert kernels.launches - before == \
+            eng.stats_snapshot()["device_dispatches"]
+        assert eng.stats["longdoc_split_docs"] > 0
+        assert chip_smoke.answer_rows(eng.detect_many(sched_docs)) == \
+            want_rows
+        ring = eng.staging_stats()
+        assert ring["pending_releases"] == 0 and ring["occupancy"] == 0
+        assert eng.pipeline_stats()["inflight"] == 0
+
+
+@pytest.mark.cuda
+def test_concurrent_flushes_reuse_leases(cuda_dt, sched_docs):
+    """Four threads flushing through one engine at depth 2, three rounds
+    each: answers equal the CPU's, later flushes take their staging
+    leases from the ring, and no lease is released while its copy is in
+    flight."""
+    import concurrent.futures
+    parts = [sched_docs[i::4] for i in range(4)]
+    cpu = NgramBatchEngine(device="cpu")
+    want = [cpu.detect_codes(p) for p in parts]
+    eng = NgramBatchEngine(device="cuda", pipeline_depth=2)
+    before = kernels.launches
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for _ in range(3):
+            got = list(pool.map(eng.detect_codes, parts))
+            assert got == want
+    assert kernels.launches - before == \
+        eng.stats_snapshot()["device_dispatches"]
+    ring = eng.staging_stats()
+    assert ring["hits"] > 0
+    assert ring["pending_releases"] == 0 and ring["occupancy"] == 0
+    assert eng.pipeline_stats()["inflight"] == 0

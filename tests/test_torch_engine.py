@@ -36,6 +36,11 @@ from language_detector_tpu_torch.ops import device_tables as tdev
 from language_detector_tpu_torch.registry import registry as treg
 from language_detector_tpu_torch.tables import DATA_DIR
 from language_detector_tpu_torch.tables import load_tables as tload_tables
+from torch_support import jax_packer, lost_workers
+
+# while this worker collects, before any of its tests run
+jax_packer()
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -116,6 +121,16 @@ def test_native_libraries_are_the_ports_own():
     assert tnative.available()
     assert tnative._SO.name == "libldtpack_torch.so"
     assert tnative._SO.parent.parent.name == "language_detector_tpu_torch"
+
+
+def test_jax_packer_loaded_in_every_worker():
+    """No worker of this test run lost the JAX package's first-use
+    native build (a worker that did skips the JAX tests whose module
+    skip marks it evaluated before torch_support.jax_packer repaired
+    it; the JAX loader's own build lock is ROADMAP queue C)."""
+    assert not lost_workers(), (
+        f"the JAX package's native packer failed to load at first in "
+        f"{lost_workers()}: JAX tests there were skipped")
 
 
 def _jax_planes(jdt) -> dict:
@@ -251,8 +266,10 @@ def test_hints_html_and_chunks_answer_like_reference(cpu_engine,
 def test_port_imports_neither_jax_nor_reference():
     """A fresh process that imports every module of the port
     (pkgutil.walk_packages, the service fronts included) and runs CPU
-    plain, hinted, HTML, span, chunk-vector and service calls holds no
-    jax* and no language_detector_tpu module."""
+    plain, hinted, HTML, span, chunk-vector and service calls, and a
+    detect_codes call through the stream scheduler (dedup, tier lanes,
+    the long-doc lane, depth 2), holds no jax* and no
+    language_detector_tpu module."""
     code = (
         "import importlib.util, pkgutil, sys\n"
         "import language_detector_tpu_torch as lt\n"
@@ -282,6 +299,18 @@ def test_port_imports_neither_jax_nor_reference():
         "svc = DetectorService(device='cpu', max_delay_ms=1.0)\n"
         "assert svc.detect_codes([doc] * 70)[0] == ln.split('\\t')[0]\n"
         "svc.batcher.close()\n"
+        "lines = [x.split('\\t', 1)[1] for x in\n"
+        "         open(DATA_DIR / 'eval_corpus.tsv', encoding='utf-8')]\n"
+        "many = [f'{lines[i % len(lines)]} {i}' for i in range(1100)]\n"
+        "many += [' '.join(lines)] + many[:50]\n"
+        "from language_detector_tpu_torch.models.ngram import "
+        "NgramBatchEngine\n"
+        "e = NgramBatchEngine(device='cpu', longdoc_chunk_slots=1024)\n"
+        "assert len(e.detect_codes(many)) == len(many)\n"
+        "st = e.stats_snapshot()\n"
+        "assert st['dedup_docs'] == 50 and st['longdoc_split_docs'] == 1\n"
+        "assert st['tier_short_dispatches'] + st['tier_mid_dispatches']\n"
+        "assert e.pipeline_stats()['depth'] == 2\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or "
         "m == 'language_detector_tpu'"
         " or m.startswith('language_detector_tpu.')]\n"

@@ -46,6 +46,7 @@ from language_detector_tpu_torch.registry import registry as treg
 from language_detector_tpu_torch.tables import DATA_DIR
 from language_detector_tpu_torch.tables import load_tables as tload_tables
 from test_hints_parity import CASES, PRIOR_TEXTS
+from torch_support import jax_packer
 
 # (hint keyword arguments) on top of the parity cases' own: every
 # CLDHints channel, alone and together
@@ -57,6 +58,9 @@ EXTRA_HINTS = [
          language_hint=jreg.code_to_lang["nl"]),
     dict(content_language_hint="pt-BR,es;q=0.5,fr"),
 ]
+
+# while this worker collects, before any of its tests run
+jax_packer()
 
 
 def _case_hints(mod, kw: dict):

@@ -39,6 +39,11 @@ from language_detector_tpu_torch.ops.score import (score_chunks_plain,
 from language_detector_tpu_torch.registry import registry as treg
 from language_detector_tpu_torch.tables import DATA_DIR
 from language_detector_tpu_torch.tables import load_tables as tload_tables
+from torch_support import jax_packer
+
+# while this worker collects, before any of its tests run
+jax_packer()
+
 
 H_WINDOW = 64          # hint_lp window size for synthetic wires
 N_WHACK = 5            # whack table rows

@@ -29,6 +29,11 @@ from language_detector_tpu_torch.service import aioserver, server, swap
 from language_detector_tpu_torch.service.admission import (
     AdmissionConfig, AdmissionController)
 from language_detector_tpu_torch.tables import DATA_DIR
+from torch_support import jax_packer
+
+# while this worker collects, before any of its tests run
+jax_packer()
+
 
 EN = ("this is a simple english sentence with common words that should "
       "be detected without any trouble at all")
@@ -160,8 +165,8 @@ def test_metrics_endpoint(front):
     text = body.decode()
     assert "augmentation_requests_total" in text
     assert 'augmentation_detected_language{language="French"}' in text
-    # the port's engine gauges: depth 1, no pool
-    assert "ldt_pipeline_depth 1" in text
+    # the port's engine gauges: the default pipeline depth 2, no pool
+    assert "ldt_pipeline_depth 2" in text
     assert "ldt_pool_lanes_total 0" in text
     status, body = _get(front["metrics_url"] + "/debug/vars")
     assert status == 200 and json.loads(body)
@@ -174,7 +179,7 @@ def test_pipeline_stats_keys_match_reference(front):
     ref = ref_ngram.NgramBatchEngine(ref_load(), ref_reg).pipeline_stats()
     got = front["svc"]._engine.pipeline_stats()
     assert sorted(got) == sorted(ref)
-    assert got["depth"] == 1 and got["kernel"] == "plain"
+    assert got["depth"] == ref["depth"] == 2 and got["kernel"] == "plain"
 
 
 def test_aio_front_contract(tmp_path):

@@ -16,8 +16,13 @@ import pytest
 from language_detector_tpu.evalsuite import corpus_pairs
 from language_detector_tpu_torch.detector import \
     LanguageDetector as TorchDetector
-from language_detector_tpu_torch.engine_scalar import detect_scalar_spans
+from language_detector_tpu_torch.engine_scalar import (SPAN_SPLIT_SLOTS,
+                                                       detect_scalar_spans)
 from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+from torch_support import jax_packer
+
+# while this worker collects, before any of its tests run
+jax_packer()
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +67,8 @@ def test_spans_match_reference_and_scalar(eng, jax_eng):
     assert got == [_records(r) for r in jax_eng.detect_spans(texts)]
     for text, g in zip(texts, got):
         want = detect_scalar_spans(text, eng.tables, eng.reg, eng.flags,
-                                   eng.longdoc_chunk_slots)
+                                   eng.longdoc_chunk_slots or
+                                   SPAN_SPLIT_SLOTS)
         assert g == _records(want), text[:60]
     assert any(len(g[-1]) > 1 for g in got)
 
@@ -110,13 +116,14 @@ def test_small_budget_forces_splits(eng, budget):
 
 def test_longdoc_budget_reads_environment(monkeypatch):
     """longdoc_chunk_slots=None reads LDT_LONGDOC_CHUNK_SLOTS (default
-    1024, as the reference's setting)."""
+    0 in the port: the long-doc lane off, spans split at
+    SPAN_SPLIT_SLOTS)."""
     monkeypatch.delenv("LDT_LONGDOC_CHUNK_SLOTS", raising=False)
-    assert NgramBatchEngine(device="cpu").longdoc_chunk_slots == 1024
+    assert NgramBatchEngine(device="cpu").longdoc_chunk_slots == 0
     monkeypatch.setenv("LDT_LONGDOC_CHUNK_SLOTS", "64")
     assert NgramBatchEngine(device="cpu").longdoc_chunk_slots == 64
     monkeypatch.setenv("LDT_LONGDOC_CHUNK_SLOTS", "not-a-number")
-    assert NgramBatchEngine(device="cpu").longdoc_chunk_slots == 1024
+    assert NgramBatchEngine(device="cpu").longdoc_chunk_slots == 0
 
 
 def test_detector_spans_match_reference():

@@ -27,6 +27,10 @@ from language_detector_tpu_torch.models.ngram import NgramBatchEngine
 from language_detector_tpu_torch.tables import DATA_DIR
 from test_batch_agreement import _fill_fuzz_docs
 from test_result_vector import TEXTS
+from torch_support import jax_packer
+
+# while this worker collects, before any of its tests run
+jax_packer()
 
 
 @pytest.fixture(scope="module")

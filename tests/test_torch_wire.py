@@ -23,6 +23,11 @@ import pytest
 
 import chip_smoke
 from language_detector_tpu_torch.tables import DATA_DIR
+from torch_support import jax_packer
+
+# while this worker collects, before any of its tests run
+jax_packer()
+
 
 ROOT = Path(__file__).resolve().parent.parent
 
