@@ -118,6 +118,33 @@ each printing one line:
             60 s interval
   eval      the eval scorecard (evalsuite.run_eval) on the card equals
             the CPU worker's key for key and clears check_floor
+  shm       one threaded front's service on the card with its
+            unix-socket lane and its shared-memory ring lane: the service
+            bodies through the socket (one frame in flight) and through a
+            RingClient pipelining over 8 slots, 2 alternating passes a
+            lane; every response equal to the socket lane's and to the
+            CPU front's, zero non-2xx, launches == dispatches; under a
+            poison_doc:error rule a 32-document frame with one poison
+            document quarantines exactly that one, the other 31 answer
+            as the main path did; shm and UDS docs/s, shm p99
+  supervisor
+            python -m language_detector_tpu_torch.service.supervisor runs
+            one asyncio front on the card; a SIGHUP blue/green drill
+            under 16 HTTP clients: the standby warms on the card, the old
+            generation drains, zero non-2xx and zero failed requests,
+            payloads equal the CPU front's, exit 0; the standby's
+            warmup_ms and the cut-over time
+  fleet     LDT_FLEET_WORKERS=2 members of the asyncio front on the one
+            card (compute mode Default, else the phase fails), with
+            per-slot LDT_SHM_DIR, LDT_RESULT_CACHE_SHM_MB=64 and
+            LDT_FLEET_STATUS_PORT, beside a 1-member fleet: 16 clients'
+            answers equal the CPU front's, every member launched the
+            kernel once a dispatch (its /metrics), the same bodies again
+            hit the shared tier across members, the 2-member fleet
+            against the 1-member one in alternating passes (docs/s,
+            p50/p99), a rolling SIGHUP swap under load with zero non-2xx
+            and zero failed requests, and a SIGKILLed member replaced
+            with its postmortem harvested (failed requests printed)
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -127,8 +154,9 @@ timed in turns on one card.
 
 The last two lines are the kernel table as JSON (its launches count the
 main path's, the traced windows', every accuracy path's, the scheduler,
-service, pool, shards, integrity and eval phases') and the run's
-verdict,
+service, pool, shards, integrity and eval phases', the shm phase's,
+and the supervisor's and fleet members' read from their /metrics
+ldt_kernel_launches_total) and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -1339,9 +1367,10 @@ def service_phase(seed: int, docs: list, kernels, smi: str,
     HTTP lane's p99 must stay under 1 s, the
     breaker must have stayed closed,
     no request was answered by the scalar engine, and the card's run
-    took under 60 s. Returns the kernel launches it made. device: the
-    fronts' engine device (None: the card; a CPU rehearsal passes
-    "cpu" and fails at the launch check)."""
+    took under 60 s. Returns the kernel launches it made and the CPU
+    fronts' answers ({lane: answers}, the later phases' reference).
+    device: the fronts' engine device (None: the card; a CPU rehearsal
+    passes "cpu" and fails at the launch check)."""
     import functools
     import tempfile
 
@@ -1473,7 +1502,7 @@ def service_phase(seed: int, docs: list, kernels, smi: str,
                              "requests answered by the scalar engine")
     if phase_s >= 60:
         raise AssertionError(f"service phase took {phase_s:.1f} s")
-    return n_launch + n_traced
+    return n_launch + n_traced, want
 
 
 # -- the engine's stream scheduler ---------------------------------------------
@@ -2060,6 +2089,680 @@ def eval_phase(want: dict, kernels, smi: str, tables, reg, dev) -> int:
     return n_launch
 
 
+# -- the process layer: shm ring lane, supervisor, fleet -----------------------
+
+SHM_SLOTS = 8                # ring slots the smoke's client pipelines over
+SHM_SLOT_BYTES = 1 << 21     # holds the largest service body (1 MB)
+SHM_PASSES = 2               # timed passes a lane, alternating
+POISON_DOCS = 32             # documents of the poison frame
+PROC_CLIENTS = 16            # HTTP clients of the supervisor and fleet
+FLEET_WORKERS = 2            # fleet members on the one card
+FLEET_ORDER = (2, 1, 1, 2)   # fleet sizes of the throughput passes
+PROC_START_S = 240           # a supervised worker or fleet must be ready
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def get_url(url: str, timeout: float = 10.0) -> tuple:
+    """(status, body bytes) of one GET; (0, b"") when it fails."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except Exception:  # noqa: BLE001 - not up yet / mid-teardown
+        return 0, b""
+
+
+def scrape(metrics_port: int) -> str:
+    return get_url(f"http://127.0.0.1:{metrics_port}/metrics")[1].decode()
+
+
+def fleetz(status_port: int) -> dict | None:
+    st, body = get_url(f"http://127.0.0.1:{status_port}/fleetz")
+    return json.loads(body) if st == 200 else None
+
+
+def wait_for(pred, what: str, limit_s: float, proc=None):
+    """Poll pred() every 0.1 s until it returns a true value (returned);
+    raises after limit_s or when proc has exited."""
+    deadline = time.monotonic() + limit_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited with "
+                                 f"{proc.returncode}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {limit_s} s")
+        time.sleep(0.1)
+
+
+class HttpLoad:
+    """Clients posting bodies over HTTP/1.1 keep-alive to one port.
+    Request i carries the id "aio-http-<i>", the id the service phase's
+    CPU reference gave the same body. run() sends every body once
+    (answers in request order); start()/stop() cycle through the bodies
+    until stopped. A request whose connection fails before any
+    response (a keep-alive connection a draining or killed worker
+    closed) is sent again once on a new connection: `retries` counts
+    those, `failed` the requests that still got no response."""
+
+    def __init__(self, port: int, bodies: list, clients: int):
+        self.port, self.bodies, self.clients = port, bodies, clients
+        self.lock = threading.Lock()
+        self.stop_ev = threading.Event()
+        self.answers: list = [None] * len(bodies)
+        self.statuses: list = []
+        self.secs: list = []
+        self.retries = 0
+        self.failed = 0
+        self.errors: list = []
+        self._threads: list = []
+
+    def _post(self, conn, i: int) -> tuple:
+        conn.request("POST", "/", self.bodies[i], {
+            "Content-Type": "application/json",
+            "X-LDT-Request-Id": f"aio-http-{i}"})
+        r = conn.getresponse()
+        payload = r.read()
+        return r.status, r.getheader("X-LDT-Request-Id"), payload
+
+    def _client(self, work) -> None:
+        import http.client
+
+        def connect():
+            return http.client.HTTPConnection("127.0.0.1", self.port,
+                                              timeout=120)
+        conn = connect()
+        try:
+            while not self.stop_ev.is_set():
+                i = work()
+                if i is None:
+                    return
+                t0 = time.perf_counter()
+                try:
+                    got = self._post(conn, i)
+                except (OSError, http.client.HTTPException):
+                    conn.close()
+                    conn = connect()
+                    with self.lock:
+                        self.retries += 1
+                    try:
+                        got = self._post(conn, i)
+                    except (OSError, http.client.HTTPException) as e:
+                        conn.close()
+                        conn = connect()
+                        with self.lock:
+                            self.failed += 1
+                            self.errors.append(repr(e))
+                        continue
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    self.answers[i] = got
+                    self.statuses.append(got[0])
+                    self.secs.append(dt)
+        finally:
+            conn.close()
+
+    def _spawn(self, work) -> None:
+        self._threads = [threading.Thread(target=self._client,
+                                          args=(work,), daemon=True)
+                         for _ in range(self.clients)]
+        for t in self._threads:
+            t.start()
+
+    def _join(self) -> None:
+        for t in self._threads:
+            t.join(600)
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError("an HTTP client hung")
+
+    def run(self) -> float:
+        """Every body once; returns the wall seconds."""
+        nxt = iter(range(len(self.bodies)))
+
+        def work():
+            with self.lock:
+                return next(nxt, None)
+        t0 = time.perf_counter()
+        self._spawn(work)
+        self._join()
+        return time.perf_counter() - t0
+
+    def start(self) -> None:
+        counter = iter(range(1 << 62))
+
+        def work():
+            with self.lock:
+                return next(counter) % len(self.bodies)
+        self._spawn(work)
+
+    def stop(self) -> None:
+        self.stop_ev.set()
+        self._join()
+
+    def non_2xx(self) -> list:
+        return sorted({s for s in self.statuses if s not in (200, 203)})
+
+    def payload_mismatches(self, want: list) -> list:
+        """Indices whose last answer's (status, payload) differs from
+        want's (status, id, payload) for the same body."""
+        return [i for i, a in enumerate(self.answers)
+                if a is not None and (a[0], a[2]) != (want[i][0],
+                                                      want[i][2])]
+
+
+def proc_env(**values) -> dict:
+    """The environment of a supervisor the smoke starts: this one, the
+    checkout on the path, and values."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env.update({k: str(v) for k, v in values.items()})
+    return env
+
+
+def start_supervisor(env: dict, log_path: str, module: str | None = None):
+    """python -m language_detector_tpu_torch.service.supervisor [module]
+    (by default its own default, the asyncio front) in a session of its
+    own, its output to log_path."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "language_detector_tpu_torch.service.supervisor"] +
+        ([module] if module else []),
+        cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    proc.log = log
+    return proc
+
+
+def stop_supervisor(proc, sig=None, limit_s: float = 120) -> int | None:
+    """Signal the supervisor (SIGTERM by default), wait for it, then
+    kill whatever is left of its session; its exit code (None if it had
+    to be killed)."""
+    import signal
+    rc = None
+    try:
+        if proc.poll() is None:
+            proc.send_signal(sig or signal.SIGTERM)
+        rc = proc.wait(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            proc.wait(timeout=30)
+        proc.log.close()
+    return rc
+
+
+def member_counts(metrics_port: int) -> dict:
+    """One worker's kernel launches, device dispatches, shared-tier hits,
+    warmup ms and generation from its /metrics."""
+    text = scrape(metrics_port)
+    return {"launches": metric_value(text, "ldt_kernel_launches_total"),
+            "dispatches": metric_value(text,
+                                       "ldt_device_dispatches_total"),
+            "shared_hits": metric_value(text,
+                                        "ldt_shared_cache_hits_total"),
+            "warmup_ms": metric_value(text, "ldt_warmup_ms"),
+            "generation": metric_value(text, "ldt_worker_generation")}
+
+
+def lane_stats(load: HttpLoad, n_docs: int, wall: float) -> dict:
+    return {"docs": n_docs, "wall_s": wall, "docs_per_s": n_docs / wall,
+            "p50_ms": percentile(load.secs, 50) * 1e3,
+            "p99_ms": percentile(load.secs, 99) * 1e3,
+            "retries": load.retries, "failed": load.failed,
+            "non_2xx": load.non_2xx()}
+
+
+def shm_phase(bodies: list, want: dict, answer: dict, docs: list,
+              kernels, smi: str, device=None) -> int:
+    """Phase `shm`: one threaded front's service on the card serving its
+    unix-socket lane and its shared-memory ring lane (the servers its
+    main() opens for LDT_UNIX_SOCKET and LDT_SHM_DIR), driven as
+    bench.py's bench_shm drives them: every service body through the
+    socket (v1 frames, one in flight) and through the ring (a RingClient
+    pipelining over SHM_SLOTS slots), SHM_PASSES alternating passes a
+    lane. Every response must be byte-identical to the socket lane's and
+    to the CPU front's for the same body, with zero non-2xx; launches
+    equal device dispatches. Then, under a poison_doc:error rule, a
+    POISON_DOCS-document frame with one poison document: bisection
+    quarantines exactly that one and the other documents answer as the
+    main path did. Returns the kernel launches of the timed passes.
+    device: the service's engine device (None: the card)."""
+    import socket
+    import tempfile
+
+    from language_detector_tpu_torch import faults
+    from language_detector_tpu_torch.service import server, shmring, wire
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-shm-")
+    uds_path = os.path.join(tmp, "ldt.sock")
+    svc = server.DetectorService(device=device)
+    uds = wire.UnixFrameServer(svc, uds_path)
+    uds.start()
+    ring_srv = shmring.ShmRingServer(svc, os.path.join(tmp, "rings"))
+    ring_srv.start()
+    cli = shmring.RingClient(os.path.join(tmp, "rings"), slots=SHM_SLOTS,
+                             slot_bytes=SHM_SLOT_BYTES)
+    n_docs = sum(len(json.loads(b)["request"]) for b in bodies)
+    ref = want["threaded-uds"]
+
+    def uds_pass():
+        lat, out = [], []
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.settimeout(120)
+        conn.connect(uds_path)
+        t0 = time.perf_counter()
+        try:
+            for b in bodies:
+                t1 = time.perf_counter()
+                conn.sendall(wire.pack_frame(b))
+                st, _, payload = wire.recv_response_frame(conn)
+                lat.append(time.perf_counter() - t1)
+                out.append((st, payload))
+        finally:
+            conn.close()
+        return out, lat, time.perf_counter() - t0
+
+    def shm_pass():
+        lat, out = [], [None] * len(bodies)
+        pending: list = []
+        t0 = time.perf_counter()
+
+        def drain_oldest():
+            j, slot, t1 = pending.pop(0)
+            out[j] = cli.wait(slot, timeout=120.0)
+            lat.append(time.perf_counter() - t1)
+
+        for j, b in enumerate(bodies):
+            while True:
+                slot = cli.submit(b)
+                if slot is not None:
+                    break
+                drain_oldest()
+            pending.append((j, slot, time.perf_counter()))
+        while pending:
+            drain_oldest()
+        return out, lat, time.perf_counter() - t0
+
+    engine = svc._engine
+    passes: dict = {"uds": [], "shm": []}
+    try:
+        cli.wait_attached(60.0)
+        uds_pass()                     # untimed: the flush pool warms
+        before = engine.stats_snapshot()["device_dispatches"]
+        kernels.launches = 0
+        got: dict = {}
+        for _ in range(SHM_PASSES):
+            for name, fn in (("uds", uds_pass), ("shm", shm_pass)):
+                out, lat, wall = fn()
+                got.setdefault(name, out)
+                passes[name].append({
+                    "docs_per_s": n_docs / wall, "wall_s": wall,
+                    "p50_ms": percentile(lat, 50) * 1e3,
+                    "p99_ms": percentile(lat, 99) * 1e3,
+                    "non_2xx": sorted({s for s, _ in out
+                                       if s not in (200, 203)}),
+                    "equal_to_uds": out == got["uds"]})
+        n_launch = kernels.launches
+        dispatches = engine.stats_snapshot()["device_dispatches"] - before
+        cpu_bad = [i for i, (s, p) in enumerate(got["shm"])
+                   if (s, p) != (ref[i][0], ref[i][2])]
+        # the poison frame: short documents of the mix and a marked one
+        rng = random.Random(len(bodies))
+        frame_docs = rng.sample([d for d in docs if len(d) < 2000],
+                                POISON_DOCS - 1)
+        at = rng.randrange(POISON_DOCS)
+        frame_docs.insert(at, f"{frame_docs[0]} {shmring.POISON_MARKER}")
+        q0 = ring_srv.quarantine.stats()
+        faults.configure("poison_doc:error")
+        try:
+            st, resp = cli.request(json.dumps({"request": [
+                {"text": t} for t in frame_docs]}).encode(), timeout=120)
+        finally:
+            faults.configure(None)
+        codes = [r.get("iso6391code") for r in
+                 json.loads(resp)["response"]]
+        q1 = ring_srv.quarantine.stats()
+        others = frame_docs[:at] + frame_docs[at + 1:]
+        poison = {"status": st, "at": at, "code_at": codes[at],
+                  "others_equal": codes[:at] + codes[at + 1:] == [
+                      answer[t] for t in others],
+                  "quarantined": q1["quarantined_docs"] -
+                  q0["quarantined_docs"],
+                  "bisect_batches": q1["bisect_batches"] -
+                  q0["bisect_batches"]}
+        shm_stats = ring_srv.stats()
+    finally:
+        cli.close(unlink=True)
+        ring_srv.close()
+        uds.close()
+        svc.batcher.close()
+    phase("shm", card=smi, requests=len(bodies), docs=n_docs,
+          slots=SHM_SLOTS, slot_bytes=SHM_SLOT_BYTES, passes=passes,
+          shm_docs_per_s=max(p["docs_per_s"] for p in passes["shm"]),
+          uds_docs_per_s=max(p["docs_per_s"] for p in passes["uds"]),
+          shm_p99_ms=max(p["p99_ms"] for p in passes["shm"]),
+          cpu_equal=not cpu_bad, launches=n_launch,
+          device_dispatches=dispatches, ring=shm_stats, poison=poison)
+    bad_pass = [p for ps in passes.values() for p in ps
+                if p["non_2xx"] or not p["equal_to_uds"]]
+    if cpu_bad or bad_pass:
+        raise AssertionError(f"shm: responses differ from the socket "
+                             f"lane's or the CPU front's "
+                             f"({cpu_bad[:5]}, {bad_pass[:2]})")
+    if not (n_launch > 0 and n_launch == dispatches):
+        raise AssertionError(f"shm: {n_launch} kernel launches over "
+                             f"{dispatches} device dispatches")
+    if not (poison["quarantined"] == 1 and poison["code_at"] == "un" and
+            poison["others_equal"] and poison["status"] in (200, 203)):
+        raise AssertionError(f"shm: poison bisection {poison}")
+    return n_launch
+
+
+def supervisor_phase(bodies: list, want: dict, smi: str) -> int:
+    """Phase `supervisor`: python -m
+    language_detector_tpu_torch.service.supervisor runs one asyncio
+    front on the card (LDT_REUSEPORT, LDT_WARMUP), PROC_CLIENTS clients
+    post the service bodies over HTTP, and a SIGHUP runs the blue/green
+    drill under that load: the standby becomes ready on the card, the
+    old generation drains, generation 2 serves the load (its dispatches
+    grow after the cut-over). Zero non-2xx, zero
+    failed requests, every payload equal to the CPU front's, and the
+    supervisor exits 0 on SIGTERM. Prints the standby's warmup_ms and
+    the cut-over time. Returns generation 2's kernel launches (which
+    must equal its device dispatches)."""
+    import re
+    import signal
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-sup-")
+    port, mport = free_port(), free_port()
+    log_path = os.path.join(tmp, "supervisor.log")
+    sup = start_supervisor(proc_env(
+        LISTEN_PORT=port, PROMETHEUS_PORT=mport, LDT_REUSEPORT=1,
+        LDT_WARMUP=1, LDT_SWAP_TIMEOUT_SEC=120), log_path)
+    ref = want["aio-http"]
+    t_phase = time.monotonic()
+    rc = None
+    try:
+        wait_for(lambda: get_url(f"http://127.0.0.1:{mport}/readyz")[0]
+                 == 200, "supervised worker ready", PROC_START_S, sup)
+        gen1 = member_counts(mport)
+        ready1_s = time.monotonic() - t_phase
+        load = HttpLoad(port, bodies, PROC_CLIENTS)
+        load.start()
+        time.sleep(1.0)                       # load established
+        t_hup = time.monotonic()
+        sup.send_signal(signal.SIGHUP)
+        # cut over: the standby is ready and the old generation drained
+        wait_for(lambda: "supervisor: swap complete" in open(
+            log_path).read(), "swap drill complete", PROC_START_S, sup)
+        cutover_s = time.monotonic() - t_hup
+        gen2_0 = member_counts(mport)
+        time.sleep(2.0)                       # traffic rides generation 2
+        load.stop()
+        gen2 = member_counts(mport)
+        rc = stop_supervisor(sup)
+    finally:
+        if rc is None:
+            stop_supervisor(sup)
+    text = open(log_path).read()
+    m = re.search(r'"msg": "supervisor: swap complete".*?'
+                  r'"standby_ready_sec": ([0-9.]+)', text)
+    bad = load.payload_mismatches(ref)
+    phase("supervisor", card=smi, clients=PROC_CLIENTS,
+          requests=len(load.statuses),
+          generation1={"ready_s": ready1_s, **gen1},
+          standby_warmup_ms=gen2["warmup_ms"],
+          standby_ready_s=float(m.group(1)) if m else None,
+          cutover_s=cutover_s, generation2=gen2,
+          generation2_served_dispatches=gen2["dispatches"] -
+          gen2_0["dispatches"],
+          non_2xx=load.non_2xx(), failed=load.failed,
+          retries=load.retries, payloads_equal=not bad, exit_code=rc,
+          phase_s=time.monotonic() - t_phase)
+    if load.non_2xx() or load.failed or bad or rc != 0 or \
+            "swap-abort" in text or m is None:
+        raise AssertionError(
+            f"supervisor drill: non-2xx {load.non_2xx()}, "
+            f"{load.failed} failed ({load.errors[:3]}), payloads differ "
+            f"at {bad[:5]}, exit {rc}; log tail {text[-1500:]}")
+    if not (gen2["generation"] == 2 and
+            gen2["dispatches"] > gen2_0["dispatches"] and
+            gen2["launches"] == gen2["dispatches"]):
+        raise AssertionError(f"supervisor: generation 2 made "
+                             f"{gen2['launches']} kernel launches over "
+                             f"{gen2['dispatches']} dispatches")
+    return int(gen2["launches"])
+
+
+class Fleet:
+    """python -m language_detector_tpu_torch.service.supervisor with
+    LDT_FLEET_WORKERS=n: n members of `module` (None: the supervisor's
+    default, the asyncio front on the card) on one SO_REUSEPORT port,
+    each with its own ring directory under LDT_SHM_DIR and recorder
+    under LDT_FLIGHTREC_DIR, sharing one result-cache tier file
+    (LDT_RESULT_CACHE_SHM_MB)."""
+
+    def __init__(self, n: int, tmp: str, module: str | None = None,
+                 **env):
+        self.n = n
+        self.port, self.sport = free_port(), free_port()
+        d = os.path.join(tmp, f"fleet{n}-{self.port}")
+        os.makedirs(d)
+        self.log_path = os.path.join(d, "fleet.log")
+        self.proc = start_supervisor(proc_env(**{
+            "LISTEN_PORT": self.port, "PROMETHEUS_PORT": 0,
+            "LDT_FLEET_WORKERS": n, "LDT_FLEET_STATUS_PORT": self.sport,
+            "LDT_SHM_DIR": os.path.join(d, "shm"),
+            "LDT_FLIGHTREC_DIR": os.path.join(d, "fr"),
+            "LDT_RESULT_CACHE_MB": 64, "LDT_RESULT_CACHE_SHM_MB": 64,
+            "LDT_SWAP_TIMEOUT_SEC": 120,
+            "LDT_CRASH_BACKOFF_BASE_SEC": 0.2,
+            "LDT_CRASH_BACKOFF_MAX_SEC": 1.0, **env}),
+            self.log_path, module)
+
+    def snap(self) -> dict | None:
+        return fleetz(self.sport)
+
+    def wait(self, pred, what: str, limit_s: float = PROC_START_S) -> dict:
+        return wait_for(lambda: (lambda s: s if s is not None and pred(s)
+                                 else None)(self.snap()),
+                        what, limit_s, self.proc)
+
+    def counts(self) -> dict:
+        """{slot: member_counts} over the members /fleetz lists."""
+        return {m["slot"]: member_counts(m["metrics_port"])
+                for m in self.snap()["members"] if m["metrics_port"]}
+
+    def log(self) -> str:
+        return open(self.log_path).read()
+
+    def close(self) -> int | None:
+        import signal
+        return stop_supervisor(self.proc, signal.SIGINT)
+
+
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
+def fleet_phase(bodies: list, want: dict, smi: str) -> int:
+    """Phase `fleet`: FLEET_WORKERS members of the port's asyncio front
+    on the one card (needs the card's compute mode Default), and beside
+    it a 2-member and a 1-member fleet without result caches for the
+    throughput passes. Answers: PROC_CLIENTS clients post the
+    service bodies to the fleet; every (status, id, payload) equals the
+    CPU front's, and every member launched the kernel once a dispatch
+    (read from each member's /metrics). Shared tier: the same bodies
+    again, and the shared-tier hits summed over members must be above
+    0. Throughput: the cacheless 2-member fleet against the 1-member
+    fleet in alternating passes (FLEET_ORDER). Rolling swap: a SIGHUP under
+    load, zero non-2xx and zero failed requests. Member death: SIGKILL
+    of one member under load, /fleetz back at FLEET_WORKERS ready with
+    its postmortem harvested (the failed requests printed). Returns the
+    kernel launches read from the members."""
+    import signal
+    import tempfile
+    mode = compute_mode()
+    if mode != "Default":
+        raise AssertionError(f"fleet: the card's compute mode is {mode!r}; "
+                             "two member processes need Default")
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-fleet-")
+    ref = want["aio-http"]
+    n_docs = sum(len(json.loads(b)["request"]) for b in bodies)
+    t_phase = time.monotonic()
+    # the fleet under test, and for the throughput passes two fleets
+    # without result caches (a cached pass would time the cache)
+    no_cache = {"LDT_RESULT_CACHE_MB": 0, "LDT_RESULT_CACHE_SHM_MB": 0}
+    fleets = {"main": Fleet(FLEET_WORKERS, tmp),
+              FLEET_WORKERS: Fleet(FLEET_WORKERS, tmp, **no_cache),
+              1: Fleet(1, tmp, **no_cache)}
+    fl = fleets["main"]
+    rcs: dict = {}
+    try:
+        for f in fleets.values():
+            f.wait(lambda s, n=f.n: s["ready"] == n,
+                   f"{f.n}-member fleet ready")
+        ready_s = time.monotonic() - t_phase
+        c0 = fl.counts()
+        load = HttpLoad(fl.port, bodies, PROC_CLIENTS)
+        load.run()
+        bad = [i for i, (a, w) in enumerate(zip(load.answers, ref))
+               if a != w]
+        dup = HttpLoad(fl.port, bodies, PROC_CLIENTS)
+        dup.run()
+        bad_dup = dup.payload_mismatches(ref)
+        c1 = fl.counts()
+        per_member = {s: {k: c1[s][k] - c0[s][k]
+                          for k in ("launches", "dispatches",
+                                    "shared_hits")} for s in c1}
+        launches = sum(m["launches"] for m in per_member.values())
+        dispatches = sum(m["dispatches"] for m in per_member.values())
+        shared_hits = sum(m["shared_hits"] for m in per_member.values())
+        # throughput: the two cacheless fleets in alternating passes,
+        # each pass the service bodies twice over
+        tput: dict = {FLEET_WORKERS: [], 1: []}
+        for n in FLEET_ORDER:
+            f = fleets[n]
+            before = f.counts()
+            lt = HttpLoad(f.port, bodies * 2, PROC_CLIENTS)
+            wall = lt.run()
+            after = f.counts()
+            tput[n].append(lane_stats(lt, 2 * n_docs, wall))
+            launches += sum(after[s]["launches"] - before[s]["launches"]
+                            for s in after if s in before)
+            dispatches += sum(after[s]["dispatches"] -
+                              before[s]["dispatches"]
+                              for s in after if s in before)
+            if lt.failed or lt.non_2xx() or \
+                    lt.payload_mismatches(ref * 2):
+                raise AssertionError(f"fleet of {n}: a throughput pass "
+                                     f"failed {tput[n][-1]}")
+        for n in (FLEET_WORKERS, 1):
+            rcs[f"throughput-{n}"] = fleets.pop(n).close()
+        # rolling swap under load
+        gen_before = max(m["generation"] for m in fl.snap()["members"])
+        roll = HttpLoad(fl.port, bodies, PROC_CLIENTS)
+        roll.start()
+        time.sleep(1.0)
+        t_hup = time.monotonic()
+        fl.proc.send_signal(signal.SIGHUP)
+        fl.wait(lambda s: s["ready"] == FLEET_WORKERS and
+                min(m["generation"] for m in s["members"]) > gen_before,
+                "rolling swap done")
+        wait_for(lambda: "rolling swap complete" in fl.log(),
+                 "rolling swap logged", 30, fl.proc)
+        roll_s = time.monotonic() - t_hup
+        time.sleep(1.0)
+        roll.stop()
+        # member death under load
+        victim = fl.snap()["members"][0]
+        death = HttpLoad(fl.port, bodies, PROC_CLIENTS)
+        death.start()
+        time.sleep(1.0)
+        t_kill = time.monotonic()
+        os.kill(victim["pid"], signal.SIGKILL)
+        after_kill = fl.wait(
+            lambda s: s["ready"] == FLEET_WORKERS and any(
+                m["slot"] == victim["slot"] and
+                m["pid"] not in (None, victim["pid"])
+                for m in s["members"]) and any(
+                p.get("pid") == victim["pid"]
+                for p in s.get("postmortems", ())),
+            "killed member replaced")
+        replace_s = time.monotonic() - t_kill
+        time.sleep(1.0)
+        death.stop()
+        text = fl.log()
+        rcs["main"] = fleets.pop("main").close()
+    finally:
+        for n, f in fleets.items():
+            rcs[n] = f.close()
+    pm = next(p for p in after_kill["postmortems"]
+              if p.get("pid") == victim["pid"])
+    phase("fleet", card=smi, compute_mode=mode, workers=FLEET_WORKERS,
+          clients=PROC_CLIENTS, requests=len(bodies), docs=n_docs,
+          ready_s=ready_s, cpu_equal=not bad and not bad_dup,
+          members=per_member, launches=launches, dispatches=dispatches,
+          shared_hits=shared_hits,
+          throughput={str(n): v for n, v in tput.items()},
+          fleet_over_one=statistics.median(
+              p["docs_per_s"] for p in tput[FLEET_WORKERS]) /
+          statistics.median(p["docs_per_s"] for p in tput[1]),
+          rolling_swap={"s": roll_s, "requests": len(roll.statuses),
+                        "non_2xx": roll.non_2xx(), "failed": roll.failed,
+                        "retries": roll.retries,
+                        "payloads_equal":
+                        not roll.payload_mismatches(ref)},
+          member_death={"slot": victim["slot"], "replace_s": replace_s,
+                        "requests": len(death.statuses),
+                        "failed": death.failed, "retries": death.retries,
+                        "non_2xx": death.non_2xx(),
+                        "postmortem_events": pm.get("events_total")},
+          exit_codes={str(n): rc for n, rc in rcs.items()},
+          phase_s=time.monotonic() - t_phase)
+    if bad or bad_dup:
+        raise AssertionError(f"fleet answers differ from the CPU front's "
+                             f"at {bad[:5]} / {bad_dup[:5]}")
+    if len(per_member) != FLEET_WORKERS or any(
+            m["launches"] <= 0 or m["launches"] != m["dispatches"]
+            for m in per_member.values()):
+        raise AssertionError(f"fleet: a member did not launch the kernel "
+                             f"once a dispatch: {per_member}")
+    if launches != dispatches:
+        raise AssertionError(f"fleet: {launches} launches over "
+                             f"{dispatches} dispatches")
+    if shared_hits <= 0:
+        raise AssertionError("fleet: no shared-tier hit across members")
+    if roll.non_2xx() or roll.failed or roll.payload_mismatches(ref) or \
+            "swap-abort" in text:
+        raise AssertionError(f"fleet rolling swap: non-2xx "
+                             f"{roll.non_2xx()}, {roll.failed} failed "
+                             f"({roll.errors[:3]})")
+    if any(rc != 0 for rc in rcs.values()):
+        raise AssertionError(f"fleet exit codes {rcs}")
+    return int(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2428,7 +3131,9 @@ def main() -> int:
     max_err = max(max_err, sched_err)
 
     # -- service: both fronts on the card, HTTP and unix-socket lanes --------
-    launches += service_phase(args.seed, docs, kernels, smi, answer)
+    n_service, service_want = service_phase(args.seed, docs, kernels, smi,
+                                            answer)
+    launches += n_service
 
     # -- device pool, sharded launches, integrity scrub, eval scorecard -----
     launches += pool_phase(docs, answer, kernels, smi, tables, reg, dev)
@@ -2439,6 +3144,12 @@ def main() -> int:
     launches += integrity_phase(docs, answer, kernels, smi, tables, reg,
                                 dev)
     launches += eval_phase(eval_ref, kernels, smi, tables, reg, dev)
+
+    # -- the process layer: shm ring lane, supervisor, fleet ----------------
+    bodies = service_requests(docs, args.seed)
+    launches += shm_phase(bodies, service_want, answer, docs, kernels, smi)
+    launches += supervisor_phase(bodies, service_want, smi)
+    launches += fleet_phase(bodies, service_want, smi)
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",

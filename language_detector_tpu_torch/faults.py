@@ -46,15 +46,15 @@ import time
 from . import knobs, telemetry
 from .locks import make_lock
 
-# point -> where the seam lives in the port (the reference declares
-# more: its fleet, shm ring and AOT seams, which the port does not have
-# yet)
+# point -> where the seam lives in the port (the reference also
+# declares its artifact-load, compile and AOT seams, which the port
+# does not have)
 FAULT_POINTS: dict = {
     "table_upload": "integrity scrub pass, per scanned pool lane (a "
                     "corrupt rule bit-flips one plane of that lane's "
                     "device tables — models HBM corruption; the scrub "
                     "digest or canary detects it and the lane heals)",
-    "frame_payload": "wire ingest, per received frame body before "
+    "frame_payload": "wire/shm ingest, per received frame body before "
                      "the CRC check (a corrupt rule bit-flips one "
                      "payload byte; with LDT_WIRE_CRC the frame is "
                      "refused instead of parsed)",
@@ -72,6 +72,10 @@ FAULT_POINTS: dict = {
                     "loads but before the engine reference rebinds (an "
                     "error aborts the swap; the old tables keep "
                     "serving)",
+    "standby_spawn": "service/supervisor swap drill and service/fleet "
+                     "rolling swap, before the standby generation is "
+                     "spawned (an error aborts the drill; the old "
+                     "generation keeps serving)",
     "lane_dispatch": "parallel/pool DevicePool.launch, before a batch "
                      "dispatches on its chosen lane (an error fails "
                      "over to the next lane in rotation)",
@@ -80,6 +84,28 @@ FAULT_POINTS: dict = {
                  "re-dispatches it on a surviving lane)",
     "lane_stall": "parallel/pool fetch path, before the fetch (a delay "
                   "models a straggler lane and triggers hedging)",
+    "worker_spawn": "service/fleet member spawn, before the Popen (an "
+                    "error fails that spawn; the member retries after "
+                    "backoff)",
+    "worker_lost": "service/fleet reap pass, per live member poll (an "
+                   "error SIGKILLs the member — simulated silent loss; "
+                   "the fleet treats it as a crash and fails over)",
+    "fleet_route": "service/fleet health plane, before each member's "
+                   "/debug/vars scrape (an error counts a failed "
+                   "sample toward DEGRADED)",
+    "shm_attach": "service/shmring worker attach, before a discovered "
+                  "ring file is mapped and its generation bumped (an "
+                  "error skips the ring; the scan retries it)",
+    "shm_lease": "service/shmring frame lease, before a READY frame "
+                 "moves to LEASED (an error leaves the frame READY "
+                 "for the next sweep)",
+    "shm_reclaim": "service/shmring reclaim sweep, before a stale "
+                   "WRITING/DONE slot is forced back to FREE (an "
+                   "error defers that reclaim one sweep)",
+    "poison_doc": "service/shmring scorer feed, per batch containing "
+                  "the poison marker (an error models a doc that "
+                  "deterministically kills its scorer batch and "
+                  "exercises bisection + quarantine)",
 }
 
 

@@ -134,16 +134,83 @@ _DECLARATIONS: tuple[Knob, ...] = (
     _k("LDT_FLUSH_TIMEOUT_SEC", "float", 60.0,
        "How long a handler waits on its flush future before answering "
        "504 (both fronts; formerly a hardcoded 60 s)."),
-    # -- supervision (set by a supervisor) ---------------------------
+    # -- supervisor crash policy (service/supervisor.py) --------------
+    _k("LDT_RESTART_ON_CRASH", "bool", False,
+       "Supervisor restarts a crashed worker (any exit other than 0 / "
+       "recycle) with exponential backoff instead of propagating the "
+       "first crash."),
+    _k("LDT_CRASH_BACKOFF_BASE_SEC", "float", 0.5,
+       "First crash-restart backoff; doubles per consecutive crash "
+       "(x0.5-1.5 jitter). The fleet uses it per member and as the "
+       "retry delay after a failed spawn."),
+    _k("LDT_CRASH_BACKOFF_MAX_SEC", "float", 30.0,
+       "Ceiling of the crash-restart backoff."),
+    _k("LDT_CRASH_LOOP_WINDOW_SEC", "float", 60.0,
+       "Crash-loop window: this many seconds of crash history count "
+       "toward the loop detector (the supervisor's, each fleet "
+       "member's, and the fleet-wide crash circuit's)."),
+    _k("LDT_CRASH_LOOP_MAX", "int", 5,
+       "Crashes inside the window that declare a crash loop: the "
+       "supervisor stops restarting and propagates the exit code; the "
+       "fleet parks the member (and, counted fleet-wide, opens the "
+       "crash circuit)."),
     _k("LDT_WORKER_GENERATION", "int", 0,
        "Set BY the supervisor on each spawned worker (1, 2, ...); "
        "exported as the ldt_worker_generation gauge. 0 = running "
        "unsupervised."),
+    # -- fleet supervisor (service/fleet.py) --------------------------
+    _k("LDT_FLEET_WORKERS", "int", 0,
+       "Worker count for the fleet supervisor: N members share the "
+       "listen port via SO_REUSEPORT, each with its own generation, "
+       "ready handshake, and crash policy; on one card every member "
+       "opens its own CUDA context and uploads its own tables. "
+       "0/unset = classic single-worker supervisor."),
+    _k("LDT_FLEET_MIN", "int", None,
+       "Autoscale floor (defaults to LDT_FLEET_WORKERS): scale-down "
+       "never drains below this many members.", bound=True),
+    _k("LDT_FLEET_MAX", "int", None,
+       "Autoscale ceiling (defaults to LDT_FLEET_WORKERS; equal "
+       "min/max disables autoscaling).", bound=True),
+    _k("LDT_FLEET_HEALTH_SEC", "float", 1.0,
+       "Per-member health-scrape period: the fleet GETs each member's "
+       "/debug/vars for readiness, queue depth, and brownout level."),
+    _k("LDT_FLEET_DEGRADED_FAILS", "int", 3,
+       "Consecutive failed health scrapes that mark a member DEGRADED "
+       "(at 3x this the member is killed and respawned)."),
+    _k("LDT_FLEET_SCALE_UP_DEPTH", "int", 64,
+       "Sustained per-member admission queue depth (or brownout level "
+       ">= 2) that scales the fleet up one member.",
+       mutable=True, mrange=(1, 100_000)),
+    _k("LDT_FLEET_SCALE_DOWN_DEPTH", "int", 0,
+       "Queue depth at or below which (with no brownout) the fleet "
+       "scales down one member via a zero-drop drain.",
+       mutable=True, mrange=(0, 100_000)),
+    _k("LDT_FLEET_SCALE_HOLD_SEC", "float", 10.0,
+       "Hysteresis hold: the overload/idle condition must persist this "
+       "long before one scale step fires (and the timer re-arms).",
+       mutable=True, mrange=(0.1, 3600.0)),
+    _k("LDT_FLEET_CIRCUIT_COOLDOWN_SEC", "float", 5.0,
+       "Open fleet-circuit cooldown before one half-open probe member "
+       "is spawned; its readiness closes the circuit."),
+    _k("LDT_FLEET_STATUS_PORT", "int", 0,
+       "Fleet control-plane HTTP port (127.0.0.1): GET /fleetz (JSON "
+       "member table), /sloz, /tracez and /metrics (the ldt_fleet_* "
+       "series), POST /configz (canary-then-fan-out config push). "
+       "0 = off."),
+    _k("LDT_FLEET_SLOT", "int", None,
+       "Set BY the fleet supervisor on each member (0, 1, ...): its "
+       "stable slot index, independent of generation numbers.",
+       bound=True),
     # -- artifact & hot swap (supervisor + service/swap.py) -----------
     _k("LDT_ARTIFACT_PATH", "str", None,
        "Path to the .ldta scoring artifact to serve. Unset -> the "
        "packaged data/model.ldta. The supervisor rewrites it on each "
        "standby spawn during a swap drill."),
+    _k("LDT_ARTIFACT_POINTER", "str", None,
+       "Path to a one-line text file naming the current artifact. The "
+       "supervisor (and the fleet's rolling swap) re-reads it on every "
+       "SIGHUP swap drill, so an operator retargets a deployment by "
+       "rewriting the pointer and signaling."),
     _k("LDT_SWAP_TIMEOUT_SEC", "float", 30.0,
        "How long the supervisor holds a standby worker waiting for its "
        "ready file before aborting the swap and keeping the old "
@@ -179,11 +246,31 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "body must land within this budget or the connection is "
        "answered with a 408 error frame and closed (idle keep-alive "
        "between frames stays unbounded). 0 = off.", bound=True),
-    # -- shared-memory ring ingest lane (not ported) -----------------
+    # -- shared-memory ring ingest lane (service/shmring.py) ----------
     _k("LDT_SHM_DIR", "str", None,
-       "The reference's shared-memory ring lane directory. The lane is "
-       "not ported: both fronts refuse to start while it is set. "
-       "Unset: no shm lane."),
+       "Directory of mmap'd shared-memory ring files: the worker "
+       "scans it and serves frames written by co-located RingClient "
+       "processes in place (zero-copy twin of the UDS lane; the ring "
+       "files are byte-compatible with the reference's, so either "
+       "package's client can drive either package's server). Under "
+       "the fleet supervisor each member gets its own m<slot>/ "
+       "subdir. Unset: no shm lane."),
+    _k("LDT_SHM_SLOTS", "int", 8,
+       "Slots per ring a RingClient creates (max 63): the client's "
+       "max in-flight frames on the shm lane."),
+    _k("LDT_SHM_SLOT_BYTES", "int", 65536,
+       "Payload capacity per ring slot in bytes (rounded up to the "
+       "mmap allocation granularity so each slot maps page-aligned); "
+       "bounds both request and response frame size on the shm lane."),
+    _k("LDT_SHM_LEASE_TIMEOUT_SEC", "float", 2.0,
+       "Crash-reclaim horizon for ring slots: a WRITING slot whose "
+       "client died (or stalled) longer than this is reclaimed to "
+       "FREE, and a DONE slot with a dead client is reclaimed after "
+       "the same grace."),
+    _k("LDT_SHM_SCAN_INTERVAL_MS", "float", 1.0,
+       "Idle sleep of the shm scan thread between sweeps when no "
+       "frame was handled; the worst-case added latency for a frame "
+       "landing in an idle ring."),
     # -- startup warmup (service/server.py, service/swap.py) ----------
     _k("LDT_WARMUP", "bool", False,
        "Drive one 96-document flush through the device path at "
@@ -192,10 +279,20 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "in the ldt_warmup_ms gauge."),
     # -- fleet-shared result cache (service/sharedcache.py) -----------
     _k("LDT_RESULT_CACHE_SHM_MB", "float", 0.0,
-       "The reference's fleet-shared result-cache tier budget in MB. "
-       "The tier comes with the fleet and is not ported: both fronts "
-       "(and any service that builds a batcher) refuse to start while "
-       "it is > 0. 0/unset: per-process cache only."),
+       "Budget in MB for the shm-backed fleet-shared result-cache "
+       "tier (service/sharedcache.py): a fixed-slot open-addressed "
+       "mmap table under LDT_SHM_DIR (or /dev/shm) that every "
+       "SO_REUSEPORT fleet member reads and writes, so duplicate "
+       "docs hit across workers; the file layout is the reference's, "
+       "so both packages read each other's entries. 0/unset disables "
+       "the shared tier (the per-worker LRU is unaffected). The tier "
+       "rides the per-worker ResultCache, so LDT_RESULT_CACHE_MB must "
+       "also be > 0 for it to see any traffic."),
+    _k("LDT_SHARED_CACHE_FILE", "str", None,
+       "Explicit path of the fleet-shared result-cache mmap file. "
+       "Unset = <LDT_SHM_DIR or /dev/shm>/ldt-shared-cache.bin; the "
+       "fleet pins a per-fleet path here because its members get "
+       "per-slot LDT_SHM_DIR values and must still share ONE table."),
     # -- frame integrity (service/wire.py) ----------------------------
     _k("LDT_WIRE_CRC", "bool", False,
        "End-to-end frame payload CRC32 on the wire lanes: UDS v2 "

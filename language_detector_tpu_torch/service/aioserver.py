@@ -11,8 +11,7 @@ worker pool).
 
 Run: python -m language_detector_tpu_torch.service.aioserver
 (LISTEN_PORT / PROMETHEUS_PORT env vars, like the sync server). It
-serves on the CUDA card and raises without one; the shared-memory ring
-lane (LDT_SHM_DIR) is not ported and is refused at startup.
+serves on the CUDA card and raises without one.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ from .admission import (DeadlineExceeded, DeviceUnavailable,
 from .batcher import (_MISS, Batcher, ResultCache, _accepts_trace,
                       flush_workers)
 from .server import (BODY_LIMIT_BYTES, USAGE, DetectorService,
-                     health_response, refuse_shm_lane)
+                     health_response)
 
 _MAX_HEADER_BYTES = 16384
 
@@ -1043,7 +1042,6 @@ async def _teardown(aio: "AioService", server, mserver,
 async def serve(port: int = 3000, metrics_port: int = 30000,
                 svc: DetectorService | None = None,
                 ready: "asyncio.Future | None" = None):
-    refuse_shm_lane()
     flightrec.init_from_env(role="aio-front")
     capture.init_from_env()
     slo.init_from_env()
@@ -1085,6 +1083,24 @@ async def serve(port: int = 3000, metrics_port: int = 30000,
     if ready is not None and not ready.done():
         ready.set_result(ports)
     loop = asyncio.get_running_loop()
+    # shared-memory ring lane (service/shmring.py): the scan thread is
+    # synchronous, so its detect bridges onto this loop's batcher
+    shm = None
+    shm_dir = knobs.get_str("LDT_SHM_DIR")
+    if shm_dir:
+        from . import shmring
+
+        def _shm_detect(texts, trace=None):
+            fut = asyncio.run_coroutine_threadsafe(
+                aio.batcher.submit(texts, trace=trace), loop)
+            return fut.result(
+                (knobs.get_float("LDT_FLUSH_TIMEOUT_SEC") or 60.0) + 5.0)
+
+        shm = shmring.ShmRingServer(aio.svc, shm_dir,
+                                    detect=_shm_detect)
+        shm.start()
+        print(json.dumps({"msg": f"shm ring lane on {shm_dir}"}),
+              flush=True)
     # warmup (LDT_WARMUP) + readiness handshake (LDT_READY_FILE /
     # LDT_SWAPPED) off the loop: the standby contract with the
     # supervisor's swap drill
@@ -1121,6 +1137,10 @@ async def serve(port: int = 3000, metrics_port: int = 30000,
     finally:
         flightrec.emit_event("proc_exit", role="aio-front")
         watch.cancel()
+        if shm is not None:
+            # stop the scan thread before the loop dies: a leased frame
+            # mid-bridge would otherwise wait on a dead loop
+            await asyncio.to_thread(shm.close, 1.0)
         if userver is not None:
             userver.close()
             if uds_path:

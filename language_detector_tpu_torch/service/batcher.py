@@ -97,8 +97,8 @@ class ResultCache:
         # resolve below)
         self._pending: dict = {}
         # fleet-shared L2 (service/sharedcache.py): probed on an L1
-        # miss, written through on fill. None here (the process-wide
-        # tier is not ported and refused); `shared` passes one in
+        # miss, written through on fill. None unless
+        # LDT_RESULT_CACHE_SHM_MB is set; `shared` overrides for tests
         self._shared = shared if shared is not None \
             else sharedcache.shared_tier()
         # artifact epoch: results are only valid against the tables

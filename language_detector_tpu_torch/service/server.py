@@ -23,8 +23,7 @@ throughput log line every 1000 objects (main.go:209-218).
 
 Ports come from LISTEN_PORT / PROMETHEUS_PORT env vars (main.go:91-116).
 Run: python -m language_detector_tpu_torch.service.server (serves on
-the CUDA card and raises without one; the shared-memory ring lane,
-LDT_SHM_DIR, is not ported and is refused at startup).
+the CUDA card and raises without one).
 """
 from __future__ import annotations
 
@@ -37,7 +36,7 @@ from pathlib import Path
 
 from .. import capture, faults, flightrec, knobs, slo, telemetry
 from ..locks import make_lock
-from . import sharedcache, wire
+from . import wire
 from .admission import (BREAKER_OPEN, BREAKER_STATE_NAMES,
                         AdmissionController, DeadlineExceeded,
                         DeviceUnavailable, degraded_detect)
@@ -66,17 +65,6 @@ USAGE = {
 _CODES_FILE = Path(__file__).resolve().parent.parent.parent / \
     "language_detector_tpu" / "service" / "cld_codes.json"
 
-
-def refuse_shm_lane() -> None:
-    """The shared-memory ring lane (LDT_SHM_DIR) and the fleet-shared
-    result cache (LDT_RESULT_CACHE_SHM_MB) are not ported: a front asked
-    for either refuses to start rather than serve without it."""
-    if knobs.get_str("LDT_SHM_DIR"):
-        raise RuntimeError(
-            "LDT_SHM_DIR is set, but the shared-memory ring lane is not "
-            "ported to language_detector_tpu_torch; unset it (the "
-            "unix-socket lane, LDT_UNIX_SOCKET, is available)")
-    sharedcache.refuse_shared_tier()
 
 
 class Metrics:
@@ -119,9 +107,9 @@ class Metrics:
         # exists): () -> models/ngram.py pipeline_stats() dict or None
         # (overlap ratio, prefetch depth, staging-ring occupancy)
         self.pipeline_stats = lambda: None
-        # shm ring lane sources: () -> snapshot / quarantine stats
-        # dict or None. The lane is not ported (refuse_shm_lane), so
-        # they stay None and the gauges render 0
+        # shm ring lane sources (set by ShmRingServer.start when
+        # LDT_SHM_DIR is set): () -> shmring snapshot / quarantine
+        # stats dict or None (lane disabled — the gauges render 0)
         self.shm_stats = lambda: None
         self.quarantine_stats = lambda: None
         # fleet-shared result-cache source (set when the shared tier
@@ -222,6 +210,10 @@ class Metrics:
                         es.get("batches", 0)))
         fams.append(one("ldt_device_dispatches_total",
                         es.get("device_dispatches", 0)))
+        # the wrapper's own count of fused-tote kernel launches in this
+        # process: a supervisor or fleet reads it per member
+        from ..ops import kernels
+        fams.append(one("ldt_kernel_launches_total", kernels.launches))
         fams.append(one("ldt_fallback_documents_total",
                         es.get("fallback_docs", 0) +
                         es.get("scalar_recursion_docs", 0)))
@@ -1131,7 +1123,6 @@ def main():
     import sys
 
     from .recycle import RECYCLE_EXIT_CODE
-    refuse_shm_lane()
     flightrec.init_from_env(role="sync-front")
     capture.init_from_env()
     slo.init_from_env()
@@ -1147,6 +1138,16 @@ def main():
         uds = wire.UnixFrameServer(svc, uds_path)
         uds.start()
         print(json.dumps({"msg": f"unix-socket lane on {uds_path}"}),
+              flush=True)
+    # shared-memory ring lane: co-located heavy producers mmap frames
+    # in, the scan thread parses them in place (service/shmring.py)
+    shm = None
+    shm_dir = knobs.get_str("LDT_SHM_DIR")
+    if shm_dir:
+        from . import shmring
+        shm = shmring.ShmRingServer(svc, shm_dir)
+        shm.start()
+        print(json.dumps({"msg": f"shm ring lane on {shm_dir}"}),
               flush=True)
     threading.Thread(target=metricsd.serve_forever, daemon=True).start()
     # report the BOUND ports (port 0 picks ephemerals — supervised and
@@ -1195,6 +1196,8 @@ def main():
             # same drain contract as the HTTP accept loop: stop taking
             # frames, let in-flight ones answer before the batcher closes
             uds.close(drain_sec=drain_sec if planned else 0.0)
+        if shm is not None:
+            shm.close(drain_sec=drain_sec if planned else 0.0)
         if planned:
             # shutdown() only stops the accept loop: wait for in-flight
             # handler threads (a full-size flush mid-request must

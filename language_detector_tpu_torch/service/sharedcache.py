@@ -2,11 +2,10 @@
 
 Each SO_REUSEPORT fleet member keeps a private ResultCache, so a
 retweet storm re-scores the same hot document once per worker. This
-module holds the L2 those workers share. The fleet is not ported yet,
-so the process-wide tier stays off (build_from_env refuses
-LDT_RESULT_CACHE_SHM_MB); the table itself is kept for the fleet and
-for callers that pass one on an explicit path. One fixed-geometry mmap
-file holding an open-addressed table of
+module holds the L2 those workers share: one fixed-geometry mmap file
+(LDT_RESULT_CACHE_SHM_MB, normally under /dev/shm; the fleet pins one
+path for all members through LDT_SHARED_CACHE_FILE) holding an
+open-addressed table of
 (doc-hash -> packed result fragment), readable and writable by every
 process with zero locks, built on the same publish-order discipline as
 the shmring ingest plane (service/shmring.py):
@@ -137,7 +136,8 @@ class SharedResultCache:
                         raise RuntimeError(
                             f"shared cache {path}: incompatible layout "
                             f"(version {ver}, slot {slot_bytes}B) — "
-                            f"remove the file or open another path")
+                            f"remove the file or point "
+                            f"LDT_SHARED_CACHE_FILE elsewhere")
                     size = HEADER_BYTES + slots * SLOT_BYTES
             finally:
                 fcntl.flock(fd, fcntl.LOCK_UN)
@@ -300,6 +300,19 @@ class SharedResultCache:
             pass
 
 
+def default_path() -> str:
+    explicit = knobs.get_str("LDT_SHARED_CACHE_FILE")
+    if explicit:
+        return explicit
+    base = knobs.get_str("LDT_SHM_DIR")
+    if not base:
+        base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    if not base:
+        import tempfile
+        base = tempfile.gettempdir()
+    return os.path.join(base, "ldt-shared-cache.bin")
+
+
 _TIER = None
 _TIER_BUILT = False
 
@@ -324,21 +337,31 @@ def reset_shared_tier() -> None:
 
 
 def build_from_env():
-    """The process's shared tier: None. The fleet that shares the
-    table (the reference's SO_REUSEPORT members) is not ported, so a
-    process asked for the tier (LDT_RESULT_CACHE_SHM_MB > 0) refuses
-    to start rather than open a file outside its own fleet.
-    SharedResultCache stays usable on an explicit path (`shared=` on
-    ResultCache)."""
-    refuse_shared_tier()
-    return None
-
-
-def refuse_shared_tier() -> None:
-    if (knobs.get_float("LDT_RESULT_CACHE_SHM_MB") or 0.0) > 0:
-        raise RuntimeError(
-            "LDT_RESULT_CACHE_SHM_MB is set, but the fleet-shared "
-            "result-cache tier is not ported to "
-            "language_detector_tpu_torch (it comes with the fleet); "
-            "unset it (LDT_RESULT_CACHE_MB, the per-process cache, is "
-            "available)")
+    """The process's shared tier per LDT_RESULT_CACHE_SHM_MB, or None
+    when the knob is unset/0. Never raises: a failed attach logs and
+    runs private-cache-only."""
+    mb = knobs.get_float("LDT_RESULT_CACHE_SHM_MB") or 0.0
+    if mb <= 0:
+        return None
+    path = default_path()
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        cache = SharedResultCache(path, int(mb * 1024 * 1024))
+    except Exception as e:  # noqa: BLE001 - degraded, not down
+        import json
+        print(json.dumps({"msg": "shared result cache unavailable — "
+                                 "running with private caches only",
+                          "path": path, "error": repr(e)}),
+              flush=True)
+        return None
+    import json
+    print(json.dumps({"msg": "shared result cache attached",
+                      "path": path, "slots": cache.slot_count,
+                      "mb": mb}), flush=True)
+    # pre-touch so a scrape shows the series at 0 before any traffic
+    for name in ("ldt_shared_cache_hits_total",
+                 "ldt_shared_cache_misses_total",
+                 "ldt_shared_cache_evictions_total",
+                 "ldt_shared_cache_epoch_flush_total"):
+        telemetry.REGISTRY.counter_inc(name, 0)
+    return cache

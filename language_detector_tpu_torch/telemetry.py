@@ -78,6 +78,12 @@ METRICS: dict = {
     "ldt_device_dispatches_total": (
         "counter",
         "Device program launches (recycle-watcher meter)."),
+    "ldt_kernel_launches_total": (
+        "counter",
+        "Fused-tote CUDA kernel launches by this process "
+        "(ops/kernels.py launches; 0 on the CPU's plain scorer). The "
+        "port's series: it equals ldt_device_dispatches_total without a "
+        "pool."),
     "ldt_fallback_documents_total": (
         "counter",
         "Documents resolved off the device path "

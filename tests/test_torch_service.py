@@ -294,27 +294,74 @@ def test_failed_engine_build_is_not_swallowed(monkeypatch):
         server.DetectorService(device="cpu", start_batcher=False)
 
 
-def test_shared_cache_tier_is_refused(monkeypatch):
+def test_shared_cache_tier_is_refused(monkeypatch, tmp_path):
+    """The fleet-shared result-cache tier, refused before the fleet was
+    ported, is served now: a service asked for it
+    (LDT_RESULT_CACHE_SHM_MB) attaches the table and its metrics read
+    the tier's live stats."""
     from language_detector_tpu_torch.service import sharedcache
     monkeypatch.setenv("LDT_RESULT_CACHE_SHM_MB", "4")
     monkeypatch.setenv("LDT_RESULT_CACHE_MB", "1")
+    monkeypatch.setenv("LDT_SHARED_CACHE_FILE", str(tmp_path / "c.bin"))
     sharedcache.reset_shared_tier()
+    svc = server.DetectorService(device="cpu", max_delay_ms=1.0)
     try:
-        with pytest.raises(RuntimeError, match="LDT_RESULT_CACHE_SHM_MB"):
-            server.refuse_shm_lane()
-        with pytest.raises(RuntimeError, match="LDT_RESULT_CACHE_SHM_MB"):
-            server.DetectorService(device="cpu")
+        assert svc.detect_codes([EN, FR]) == ["en", "fr"]
+        st = svc.metrics.shared_cache_stats()
+        assert st["path"] == str(tmp_path / "c.bin")
+        assert st["misses"] >= 2
     finally:
+        svc.batcher.close()
         sharedcache.reset_shared_tier()
 
 
 def test_shm_lane_is_refused(monkeypatch, tmp_path):
+    """The shared-memory ring lane, refused before it was ported, is
+    served now: the asyncio front started with LDT_SHM_DIR answers a
+    ring frame with the bytes the unix-socket lane gives the same
+    body."""
+    from language_detector_tpu_torch.service import shmring, wire
     monkeypatch.setenv("LDT_SHM_DIR", str(tmp_path))
-    with pytest.raises(RuntimeError, match="LDT_SHM_DIR"):
-        server.refuse_shm_lane()
+    assert not hasattr(server, "refuse_shm_lane")
     svc = server.DetectorService(device="cpu", start_batcher=False)
-    with pytest.raises(RuntimeError, match="LDT_SHM_DIR"):
-        asyncio.run(aioserver.serve(0, 0, svc=svc))
+    box: dict = {}
+    started = threading.Event()
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        ready = loop.create_future()
+        box["loop"] = loop
+        box["task"] = loop.create_task(aioserver.serve(0, 0, svc=svc,
+                                                       ready=ready))
+        await ready
+        started.set()
+        try:
+            await box["task"]
+        except asyncio.CancelledError:
+            pass
+
+    t = threading.Thread(target=asyncio.run, args=(run(),), daemon=True)
+    t.start()
+    assert started.wait(60)
+    cli = shmring.RingClient(str(tmp_path))
+    try:
+        cli.wait_attached(10.0)
+        body = json.dumps({"request": [{"text": EN}, {"text": FR},
+                                       {"nokey": 1}]}).encode()
+        got = cli.request(body, timeout=30.0)
+        ref = server.DetectorService(device="cpu", max_delay_ms=1.0)
+        try:
+            st, bufs = wire.handle_frame(ref, body)
+        finally:
+            ref.batcher.close()
+        assert got == (st, b"".join(bufs))
+        assert json.loads(got[1])["response"][0]["iso6391code"] == "en"
+        assert svc.metrics.shm_stats()["frames"] == 1
+        assert svc.metrics.quarantine_stats()["quarantined_docs"] == 0
+    finally:
+        cli.close(unlink=True)
+        box["loop"].call_soon_threadsafe(box["task"].cancel)
+        t.join(30)
 
 
 def test_scalar_service_on_request(front):
