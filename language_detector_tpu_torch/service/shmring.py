@@ -57,11 +57,16 @@ This is the port's copy of the reference package's ring lane. The file
 layout, the slot headers and the CRC word are the reference's byte for
 byte, so a client of either package is served by a server of either
 package. Frames score through the port's DetectorService (on the card,
-the port's engine and its fused-tote kernel). One departure: a device
-service whose circuit breaker is open refuses flushes with
-DeviceUnavailable instead of answering on the scalar engine, and that
-refusal answers the frame 503 like a deadline does — it is not a
-poison batch, so it is never bisected.
+the port's engine and its fused-tote kernel). One departure: the
+port's device service has no scalar engine to fall back on, so a
+device failure reaches this lane. Only a failure that a document can
+cause deterministically is bisected: the poison_doc seam's fault, or
+the host side refusing a document's text (ValueError, UnicodeError and
+the like). A RuntimeError (the open breaker's DeviceUnavailable, a
+torch CUDA launch, out-of-memory or readback error, the kernel
+wrapper's launch error, a fault at a device seam) or an OSError is the
+device's, fails every half alike, and answers the frame 503
+(DeviceFailed) without quarantining a document.
 """
 from __future__ import annotations
 
@@ -81,10 +86,39 @@ from ..locks import make_lock
 from . import wire
 from .admission import DeadlineExceeded, DeviceUnavailable
 
-# the scorer's refusals that are not a poison batch: re-raised, never
-# bisected (a wedged, expired or shed backend fails every half alike)
-_NOT_POISON = (DeadlineExceeded, DeviceUnavailable, TimeoutError,
-               FuturesTimeout)
+# the scorer's refusals and failures that are not a poison batch:
+# re-raised, never bisected (a wedged, expired, shed or failing device
+# fails every half alike). DeviceUnavailable and torch's CUDA errors
+# are RuntimeErrors, TimeoutError is an OSError
+_NOT_POISON = (DeadlineExceeded, FuturesTimeout, RuntimeError, OSError)
+# ... of which the fronts answer these as they are (504 / 503), and
+# the rest as DeviceFailed
+_ANSWERED = (DeadlineExceeded, DeviceUnavailable, TimeoutError,
+             FuturesTimeout)
+
+
+class _PoisonBatch(Exception):
+    """The poison_doc seam fired on a batch: its FaultInjected is a
+    RuntimeError, and this is the one such error a document causes."""
+
+
+class DeviceFailed(DeviceUnavailable):
+    """A flush the device failed, as the ring lane answers it: 503 like
+    an open breaker (the client retries; the breaker has counted the
+    failure), never a bisection."""
+
+    body = b'{"error":"device unavailable: flush failed"}'
+
+    def __init__(self, cause: BaseException):
+        RuntimeError.__init__(self, f"device flush failed: {cause!r}")
+        self.retry_after = 1
+
+
+def _device_failed(e: BaseException) -> DeviceFailed:
+    """A device failure as the lane raises it (logged, answered 503)."""
+    print(json.dumps({"msg": "shm frame: device flush failed",
+                      "error": repr(e)}), flush=True)
+    return DeviceFailed(e)
 
 RING_MAGIC = 0x5253444C          # "LDSR"
 RING_VERSION = 1
@@ -641,7 +675,10 @@ class ShmRingServer:
             # path a real deterministic scorer kill takes
             if faults.ACTIVE is not None and \
                     any(POISON_MARKER in t for t in texts):
-                faults.hit("poison_doc")
+                try:
+                    faults.hit("poison_doc")
+                except faults.FaultInjected as e:
+                    raise _PoisonBatch(str(e)) from e
             fn = base if base is not None else svc.detect_codes
             return fn(texts, trace=trace)
 
@@ -666,8 +703,12 @@ class ShmRingServer:
     def _score_or_bisect(self, texts, trace, score):
         try:
             return score(texts, trace=trace)
-        except _NOT_POISON:
-            raise          # backend wedged/expired, not a poison frame
+        except _PoisonBatch:
+            return self._bisect(texts, trace, score)
+        except _ANSWERED:
+            raise          # backend wedged/expired/shed, not a poison frame
+        except _NOT_POISON as e:
+            raise _device_failed(e) from e
         except Exception:  # noqa: BLE001 - bisect isolates the doc
             return self._bisect(texts, trace, score)
 
@@ -688,8 +729,12 @@ class ShmRingServer:
         for part in (texts[:mid], texts[mid:]):
             try:
                 out.extend(score(part, trace=trace))
-            except _NOT_POISON:
+            except _PoisonBatch:
+                out.extend(self._bisect(part, trace, score))
+            except _ANSWERED:
                 raise
+            except _NOT_POISON as e:
+                raise _device_failed(e) from e
             except Exception:  # noqa: BLE001 - recurse on the half
                 out.extend(self._bisect(part, trace, score))
         return out

@@ -296,7 +296,8 @@ def test_failed_engine_build_is_not_swallowed(monkeypatch):
 
 def test_shared_cache_tier_is_refused(monkeypatch, tmp_path):
     """The fleet-shared result-cache tier, refused before the fleet was
-    ported, is served now: a service asked for it
+    ported (the test keeps its name from then), is served now: a
+    service asked for it
     (LDT_RESULT_CACHE_SHM_MB) attaches the table and its metrics read
     the tier's live stats."""
     from language_detector_tpu_torch.service import sharedcache
@@ -316,10 +317,10 @@ def test_shared_cache_tier_is_refused(monkeypatch, tmp_path):
 
 
 def test_shm_lane_is_refused(monkeypatch, tmp_path):
-    """The shared-memory ring lane, refused before it was ported, is
-    served now: the asyncio front started with LDT_SHM_DIR answers a
-    ring frame with the bytes the unix-socket lane gives the same
-    body."""
+    """The shared-memory ring lane, refused before it was ported (the
+    test keeps its name from then), is served now: the asyncio front
+    started with LDT_SHM_DIR answers a ring frame with the bytes the
+    unix-socket lane gives the same body."""
     from language_detector_tpu_torch.service import shmring, wire
     monkeypatch.setenv("LDT_SHM_DIR", str(tmp_path))
     assert not hasattr(server, "refuse_shm_lane")

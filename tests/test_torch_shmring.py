@@ -420,6 +420,53 @@ def test_device_unavailable_is_not_poison(tmp_path):
         srv.close()
 
 
+@pytest.mark.parametrize("n_docs", [1, 2])
+@pytest.mark.parametrize("error", [
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+    "out_of_memory", RuntimeError("fused_tote launch failed: CUDA error 700"),
+    OSError("libldt_fused_tote.so: cannot open shared object file"),
+    faults.FaultInjected("injected fault at 'lane_lost' (LDT_FAULTS)")],
+    ids=["cuda", "oom", "launch", "library", "device_seam"])
+def test_device_failure_is_not_poison(tmp_path, n_docs, error):
+    """A scorer that fails the way a device does (a torch CUDA error, an
+    out-of-memory, the kernel wrapper's launch error, a library it
+    cannot load, a fault at a device seam) answers the frame 503 and
+    quarantines nothing: on a 1-document frame bisection would quarantine
+    the document without scoring it again, and the lane would answer it
+    "un" for as long as the process lives."""
+    import torch
+    if error == "out_of_memory":
+        error = torch.cuda.OutOfMemoryError("CUDA out of memory")
+    calls = []
+
+    def failing(texts, trace=None):
+        calls.append(len(texts))
+        raise error
+
+    svc = _svc()
+    srv = shmring.ShmRingServer(svc, str(tmp_path), detect=failing)
+    srv.start()
+    cli = shmring.RingClient(str(tmp_path))
+    try:
+        cli.wait_attached(10.0)
+        st, resp = cli.request(_body(n_docs), timeout=10.0)
+        assert (st, resp) == (503, shmring.DeviceFailed.body)
+        assert calls == [n_docs]               # scored once, not bisected
+        assert srv.quarantine.stats() == {
+            "quarantined_docs": 0, "bisect_batches": 0, "hits": 0}
+        # the device is back: the same documents answer
+        calls.clear()
+        srv._base_detect = _echo
+        srv._detect = srv._make_detect()
+        st, resp = cli.request(_body(n_docs), timeout=10.0)
+        assert st == 200
+        assert [r["iso6391code"] for r in json.loads(resp)["response"]] \
+            == ["en"] * n_docs
+    finally:
+        cli.close(unlink=True)
+        srv.close()
+
+
 def test_poison_bisection_equals_reference(tmp_path):
     """Under the poison_doc fault both packages' servers bisect the
     same 32-document frame to the same bytes."""
