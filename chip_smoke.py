@@ -146,6 +146,35 @@ each printing one line:
             (docs/s, p50/p99), a rolling SIGHUP swap under load with
             zero non-2xx and zero failed requests, and a SIGKILLed member replaced
             with its postmortem harvested (failed requests printed)
+  coldstart boot-hot start: fresh processes time cold-to-ready (process
+            start to a first detect_codes over 512 documents of the mix,
+            split into interpreter, torch import, CUDA context, port
+            import, tables, library build or load, first detect): (a)
+            empty compile cache and bundle, one nvcc build, one entry
+            exported; (b) the bundle under LDT_AOT_REQUIRE with no nvcc
+            on PATH and CUDA_HOME empty: no build, one load, the loaded
+            kernel == plain on the adversarial grids; (c) the entry read
+            with a bit flipped (the aot_load seam): AotError (corrupt)
+            under LDT_AOT_REQUIRE, else refused, rebuilt and rewritten,
+            and (d) a fourth process loads the healed entry with no
+            build; every answer equal to the main path's
+  autotune  the SLO autotuner (autotune.autotune over LDT_MAX_INFLIGHT
+            and LDT_MAX_QUEUE_DOCS, LDT_SLO p99_ms=500,err_pct=1) on a
+            2-member fleet of the asyncio front (no result caches):
+            loadgen's flash_crowd replayed on its schedule by 32 clients
+            (1,600 records over 2 s), each candidate pushed through the
+            status port's POST /configz and scored as the best of two
+            laps, then 3 alternating default / winner laps; the winner
+            holds the SLO in each, and every member launched the kernel
+            once a device dispatch (its /metrics)
+  debug     the port's score-trace CLI against that live fleet:
+            --engine-stats over 256 documents of the mix on the card
+            equals a --device cpu run (both in spawned processes) and
+            the main path; --slo (/sloz), --fleet-traces (/tracez) and
+            --admission (a member's /debug/vars), each `python -m
+            language_detector_tpu_torch.debug` through a recording
+            proxy, exit 0 and print the port formatter's output on the
+            document they read
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -156,8 +185,10 @@ timed in turns on one card.
 The last two lines are the kernel table as JSON (its launches count the
 main path's, the traced windows', every accuracy path's, the scheduler,
 service, pool, shards, integrity and eval phases', the shm phase's,
-and the supervisor's and fleet members' read from their /metrics
-ldt_kernel_launches_total) and the run's verdict,
+the supervisor's and fleet members' read from their /metrics
+ldt_kernel_launches_total, the cold-start processes' first detects,
+the autotune fleet members' and the CLI's --engine-stats run) and the
+run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -2350,12 +2381,13 @@ def stop_supervisor(proc, sig=None, limit_s: float = 120) -> int | None:
 
 
 def member_counts(metrics_port: int) -> dict:
-    """One worker's kernel launches, device dispatches, shared-tier hits,
-    warmup ms and generation from its /metrics."""
+    """One worker's kernel launches, device dispatches, flushes,
+    shared-tier hits, warmup ms and generation from its /metrics."""
     text = scrape(metrics_port)
     return {"launches": metric_value(text, "ldt_kernel_launches_total"),
             "dispatches": metric_value(text,
                                        "ldt_device_dispatches_total"),
+            "flushes": metric_value(text, "ldt_batch_flushes_total"),
             "shared_hits": metric_value(text,
                                         "ldt_shared_cache_hits_total"),
             "warmup_ms": metric_value(text, "ldt_warmup_ms"),
@@ -2850,6 +2882,579 @@ def fleet_phase(bodies: list, want: dict, smi: str) -> int:
     return int(launches)
 
 
+# -- boot-hot start, the SLO autotuner, the score-trace CLI ----------------
+
+COLD_DOCS = 512              # documents of a cold-start process's first detect
+COLD_LIMIT_S = 300           # a cold-start process must finish within
+TUNE_RECORDS = 1600          # flash_crowd records a replay lap sends
+TUNE_SPAN_S = 2.0            # their scheduled span; a lap adds 0.5 s lead
+TUNE_CLIENTS = 32            # replay clients: the crowd's 2,160 requests/s
+TUNE_SLO = "p99_ms=500,err_pct=1,window_sec=30"   # bench.py's default spec
+TUNE_KNOBS = ("LDT_MAX_INFLIGHT", "LDT_MAX_QUEUE_DOCS")
+TUNE_ROUNDS = 1              # coordinate-descent rounds (time budget)
+TUNE_CONFIRM = 3             # alternating default / winner laps
+DEBUG_DOCS = 256             # documents of the CLI's --engine-stats run
+
+# One cold-start process: times its way from interpreter start to its
+# first full detect_codes, then (grid seed > 0) holds the kernel it
+# loaded against the plain version on the adversarial grids. argv: the
+# checkout, the documents (JSON), the output path, the grid seed.
+COLDSTART_CHILD = r"""
+import json, os, shutil, sys, time
+t_start = time.time()
+import torch
+t_torch = time.time()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t_ctx = time.time()
+root, docs_path, out_path, grid_seed = sys.argv[1:5]
+sys.path.insert(0, root)
+from language_detector_tpu_torch import telemetry
+from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+from language_detector_tpu_torch.ops import kernels
+t_import = time.time()
+spent = {"library_s": 0.0, "nvcc_s": 0.0}
+
+
+def timed(fn, key):
+    def call(*a, **k):
+        t0 = time.time()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[key] += time.time() - t0
+    return call
+
+
+kernels._load = timed(kernels._load, "library_s")
+kernels._nvcc_build = timed(kernels._nvcc_build, "nvcc_s")
+with open(docs_path, encoding="utf-8") as f:
+    docs = json.load(f)
+t0 = time.time()
+eng = NgramBatchEngine(device="cuda")
+t_engine = time.time()
+codes = eng.detect_codes(docs)
+torch.cuda.synchronize()
+t_ready = time.time()
+launches = kernels.launches
+grid = None
+if int(grid_seed):
+    import chip_smoke
+    from language_detector_tpu_torch.ops.score import (score_chunks_plain,
+                                                       wire_to_device)
+    grid = {"cases": 0, "unequal": 0, "max_abs_err": 0}
+    for name, wire in chip_smoke.adversarial_wires(int(grid_seed)):
+        w = wire_to_device(wire, eng.dt.device)
+        for full in (False, True):
+            got = kernels.score_chunks(eng.dt, w, full_out=full)
+            want = score_chunks_plain(eng.dt, w, full_out=full)
+            torch.cuda.synchronize()
+            grid["cases"] += 1
+            grid["unequal"] += not torch.equal(got, want)
+            if got.numel():
+                grid["max_abs_err"] = max(grid["max_abs_err"], int(
+                    (got.to(torch.int64) - want.to(torch.int64))
+                    .abs().max()))
+home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+out = {"codes": codes, "builds": kernels.builds, "launches": launches,
+       "aot": eng._aot.stats() if eng._aot is not None else None,
+       "aot_loads_total":
+           telemetry.REGISTRY.counter_value("ldt_aot_loads_total"),
+       "nvcc_found": shutil.which("nvcc") is not None or
+           os.path.exists(os.path.join(home, "bin", "nvcc")),
+       "t_start": t_start, "torch_import_s": t_torch - t_start,
+       "cuda_context_s": t_ctx - t_torch, "port_import_s": t_import - t_ctx,
+       "tables_s": t_engine - t0 - spent["library_s"],
+       "library_s": spent["library_s"], "nvcc_s": spent["nvcc_s"],
+       "first_detect_s": t_ready - t_engine, "t_ready": t_ready,
+       "grid": grid}
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def compiler_free_env(env: dict, empty_dir: str) -> dict:
+    """env with no nvcc to be found: PATH without any directory that
+    holds one, and CUDA_HOME (where ops/kernels.py looks first) an
+    empty directory."""
+    out = dict(env)
+    out["PATH"] = os.pathsep.join(
+        p for p in env.get("PATH", "").split(os.pathsep)
+        if p and not os.path.exists(os.path.join(p, "nvcc")))
+    os.makedirs(empty_dir, exist_ok=True)
+    out["CUDA_HOME"] = empty_dir
+    return out
+
+
+def cold_process(tmp: str, docs_path: str, cache: str, *,
+                 require: bool = False, no_nvcc: bool = False,
+                 faults: str | None = None, grid_seed: int = 0) -> dict:
+    """COLDSTART_CHILD in a fresh interpreter with its own compile cache
+    (tmp/cache) and the shared bundle (tmp/bundle): its result with
+    ready_s (process start to its first detect's end, on the host
+    clock) and interpreter_s, or its exit code and the end of its
+    standard error when it failed."""
+    env = proc_env(LDT_COMPILE_CACHE_DIR=os.path.join(tmp, cache),
+                   LDT_AOT_DIR=os.path.join(tmp, "bundle"),
+                   LDT_AOT_REQUIRE=int(require))
+    env.pop("LDT_FAULTS", None)
+    if faults:
+        env["LDT_FAULTS"] = faults
+    if no_nvcc:
+        env = compiler_free_env(env, os.path.join(tmp, "no-cuda-home"))
+    out_path = os.path.join(tmp, f"{cache}.json")
+    t_spawn = time.time()
+    r = subprocess.run([sys.executable, "-c", COLDSTART_CHILD, str(ROOT),
+                        docs_path, out_path, str(grid_seed)],
+                       cwd=str(ROOT), env=env, capture_output=True,
+                       text=True, timeout=COLD_LIMIT_S)
+    if r.returncode != 0:
+        return {"rc": r.returncode, "stderr": r.stderr[-3000:]}
+    with open(out_path) as f:
+        res = json.load(f)
+    res.update(rc=0, ready_s=res.pop("t_ready") - t_spawn,
+               interpreter_s=res.pop("t_start") - t_spawn)
+    return res
+
+
+def coldstart_phase(docs: list, answer: dict, smi: str, seed: int) -> int:
+    """Phase `coldstart`: boot-hot start on the card. Fresh processes
+    (COLDSTART_CHILD) each time cold-to-ready, from process start to its
+    first full detect_codes over the mix's first COLD_DOCS documents,
+    split into interpreter start, torch import, CUDA context, port
+    import, tables (load and upload), library (build or load; nvcc's
+    part apart) and first detect. (a) cold: an empty compile cache and
+    an empty bundle: one nvcc build, one entry exported. (b) boot-hot: a
+    second empty compile cache, the bundle from (a), LDT_AOT_REQUIRE,
+    no nvcc on PATH and CUDA_HOME empty: no build, one load, and the
+    kernel it loaded equals the plain version on the adversarial grids.
+    (c) the bundle read with one bit flipped through the aot_load seam's
+    corrupt rule: under LDT_AOT_REQUIRE (and no nvcc) the process fails
+    with AotError, reason corrupt; without it the entry is refused,
+    rebuilt with nvcc and rewritten, and (d) a fourth process (REQUIRE,
+    no nvcc, another empty cache) loads the healed entry with no build.
+    Every process's answers equal the main path's. Returns the
+    processes' kernel launches on their detect runs (not the grid
+    comparisons)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-cold-")
+    t_phase = time.monotonic()
+    sample = docs[:COLD_DOCS]
+    want = [answer[d] for d in sample]
+    docs_path = os.path.join(tmp, "docs.json")
+    with open(docs_path, "w", encoding="utf-8") as f:
+        json.dump(sample, f)
+    entry = os.path.join(tmp, "bundle", "cuda-fused_tote.ldtx")
+    corrupt = f"aot_load:corrupt:seed={seed}"
+    try:
+        runs = {"cold": cold_process(tmp, docs_path, "cache-a")}
+        entry_a = os.stat(entry) if os.path.exists(entry) else None
+        runs["boot_hot"] = cold_process(tmp, docs_path, "cache-b",
+                                        require=True, no_nvcc=True,
+                                        grid_seed=seed)
+        hot_built = os.path.exists(os.path.join(tmp, "cache-b",
+                                                "libldt_fused_tote.so"))
+        runs["corrupt_require"] = cold_process(
+            tmp, docs_path, "cache-c1", require=True, no_nvcc=True,
+            faults=corrupt)
+        runs["corrupt_heal"] = cold_process(tmp, docs_path, "cache-c2",
+                                            faults=corrupt)
+        entry_c = os.stat(entry) if os.path.exists(entry) else None
+        runs["healed"] = cold_process(tmp, docs_path, "cache-d",
+                                      require=True, no_nvcc=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("rc", "ready_s", "interpreter_s", "torch_import_s",
+            "cuda_context_s", "port_import_s", "tables_s", "library_s",
+            "nvcc_s", "first_detect_s", "builds", "launches",
+            "aot_loads_total", "nvcc_found", "aot", "grid")
+    modes = {name: {k: r[k] for k in keys if k in r}
+             for name, r in runs.items()}
+    for name, r in runs.items():
+        if "codes" in r:
+            modes[name]["answers_equal"] = r["codes"] == want
+    req = runs["corrupt_require"]
+    modes["corrupt_require"]["error"] = \
+        (req.get("stderr") or "").strip().splitlines()[-1:]
+    cold, hot = runs["cold"], runs["boot_hot"]
+    rewritten = None not in (entry_a, entry_c) and \
+        entry_c.st_ino != entry_a.st_ino
+    phase("coldstart", card=smi, docs=COLD_DOCS, modes=modes,
+          nvcc_share_cold=(cold["nvcc_s"] / cold["ready_s"]
+                           if cold["rc"] == 0 else None),
+          boot_hot_saves_s=(cold["ready_s"] - hot["ready_s"]
+                            if cold["rc"] == hot["rc"] == 0 else None),
+          entry_rewritten=rewritten, phase_s=time.monotonic() - t_phase)
+    for name in ("cold", "boot_hot", "corrupt_heal", "healed"):
+        r = runs[name]
+        if r["rc"] != 0:
+            raise AssertionError(f"coldstart {name}: exit {r['rc']}: "
+                                 f"{r['stderr']}")
+        if r["codes"] != want:
+            raise AssertionError(f"coldstart {name}: answers differ from "
+                                 "the main path's")
+    heal, healed = runs["corrupt_heal"], runs["healed"]
+    if not (cold["builds"] == 1 and cold["aot"]["exports"] == 1 and
+            entry_a is not None):
+        raise AssertionError(f"coldstart cold: {cold['builds']} builds, "
+                             f"bundle {cold['aot']}")
+    for name, r in (("boot_hot", hot), ("healed", healed)):
+        if not (r["builds"] == 0 and r["aot_loads_total"] == 1 and
+                r["aot"]["loads"] == 1 and not r["nvcc_found"]):
+            raise AssertionError(f"coldstart {name}: {r['builds']} builds, "
+                                 f"{r['aot_loads_total']} loads, nvcc "
+                                 f"found {r['nvcc_found']}")
+    if hot_built:
+        raise AssertionError("coldstart boot_hot: a library appeared in "
+                             "its compile cache")
+    g = hot["grid"]
+    if not g["cases"] or g["unequal"] or g["max_abs_err"]:
+        raise AssertionError(f"coldstart boot_hot: the loaded kernel "
+                             f"differs from the plain version: {g}")
+    if req["rc"] == 0 or "AotError" not in req["stderr"] or \
+            "(corrupt)" not in req["stderr"]:
+        raise AssertionError(f"coldstart corrupt_require: exit "
+                             f"{req['rc']}, want AotError (corrupt): "
+                             f"{req.get('stderr')}")
+    if not (heal["builds"] == 1 and heal["aot"]["refusals"] == 1 and
+            heal["aot"]["exports"] == 1 and rewritten):
+        raise AssertionError(f"coldstart corrupt_heal: {heal['builds']} "
+                             f"builds, bundle {heal['aot']}, entry "
+                             f"rewritten {rewritten}")
+    return int(sum(r["launches"] for r in (cold, hot, heal, healed)))
+
+
+def replay_plan(records: list, pool: list) -> list:
+    """(offset s, body, headers, documents) per loadgen record: the
+    record's document count, each document cut from a pool document to
+    its share of the record's bytes; a tenant cycles through 16
+    documents (the duplicate-heavy stream of real tenants)."""
+    arr0 = records[0]["arrival_ns"]
+    plan = []
+    for i, r in enumerate(records):
+        n = max(int(r["docs"]), 1)
+        target = max(int(r["approx_bytes"]) // n, 8)
+        texts = []
+        for j in range(n):
+            rng = random.Random((r["tenant_hash"] & 0xFFFFFFFF) * 31 +
+                                (i * 131 + j) % 16)
+            texts.append(pool[rng.randrange(len(pool))].encode()[:target]
+                         .decode(errors="ignore"))
+        headers = {"Content-Type": "application/json",
+                   "X-LDT-Tenant": r["tenant"]}
+        if r["priority"]:
+            headers["X-LDT-Priority"] = "1"
+        plan.append(((r["arrival_ns"] - arr0) / 1e9,
+                     json.dumps({"request": [{"text": t} for t in texts]})
+                     .encode(), headers, n))
+    return plan
+
+
+def replay_lap(plan: list, port: int, clients: int = TUNE_CLIENTS) -> dict:
+    """One lap: every request of the plan POSTed on its schedule by
+    `clients` keep-alive clients, as bench.py::replay_records sends.
+    SLIs in the shape autotune.score reads: p50/p99 of the successful
+    answers, errors and dropped requests against the error budget, sheds
+    (429/503) apart, and answered documents per second over the lap."""
+    import http.client
+    lock = threading.Lock()
+    cursor = [0]
+    counts = {"ok": 0, "shed": 0, "error": 0, "drop": 0}
+    ok_lat: list = []
+    ok_docs = [0]
+    t_start = time.time() + 0.5
+
+    def drive():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while True:
+                with lock:
+                    i = cursor[0]
+                    if i >= len(plan):
+                        return
+                    cursor[0] = i + 1
+                offset, body, headers, n = plan[i]
+                delay = t_start + offset - time.time()
+                if delay > 0:
+                    time.sleep(delay)
+                t0 = time.time()
+                try:
+                    conn.request("POST", "/", body, headers)
+                    resp = conn.getresponse()
+                    resp.read()
+                except (OSError, http.client.HTTPException):
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                    with lock:
+                        counts["drop"] += 1
+                    continue
+                ms = (time.time() - t0) * 1e3
+                with lock:
+                    if resp.status in (429, 503):
+                        counts["shed"] += 1
+                    elif resp.status >= 500:
+                        counts["error"] += 1
+                    else:
+                        counts["ok"] += 1
+                        ok_lat.append(ms)
+                        ok_docs[0] += n
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=drive, daemon=True)
+               for _ in range(min(clients, len(plan)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a replay client hung")
+    wall = max(time.time() - t_start, 1e-9)
+    n = max(len(plan), 1)
+    return {"p50_ms": percentile(ok_lat, 50) if ok_lat else 0.0,
+            "p99_ms": percentile(ok_lat, 99) if ok_lat else 0.0,
+            "err_pct": 100.0 * (counts["error"] + counts["drop"]) / n,
+            "shed_pct": 100.0 * counts["shed"] / n,
+            "ok_docs_per_sec": ok_docs[0] / wall, "wall_sec": wall,
+            "counts": counts}
+
+
+def push_config(status_port: int, batch: dict) -> None:
+    """One fleet-wide override batch through the status port's POST
+    /configz, probation 0 (the caller scores the candidate itself)."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{status_port}/configz",
+        data=json.dumps({"set": batch, "probation_sec": 0}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"POST /configz: {r.status}")
+        r.read()
+
+
+def autotune_phase(fl, docs: list, smi: str, seed: int) -> int:
+    """Phase `autotune`: the SLO autotuner on a live 2-member fleet of
+    the port's asyncio front on the card (LDT_FLEET_SCALE_UP_DEPTH=0,
+    LDT_SLO=TUNE_SLO, no result caches). Traffic: loadgen's flash_crowd
+    scenario from the seed (TUNE_RECORDS records over TUNE_SPAN_S s),
+    replayed on its schedule (replay_lap). One untimed warm lap, then
+    autotune.autotune over TUNE_KNOBS, each candidate pushed fleet-wide
+    through POST /configz and scored as the best of two laps, then
+    TUNE_CONFIRM alternating laps of the default against the winner.
+    Passes when the winner holds the SLO in every confirmation lap and
+    every member launched the kernel once a dispatch over the phase (its
+    /metrics; flushes of at most TINY_BATCH_C_PATH documents answer on
+    the all-C path and dispatch nothing, so `flushes` is printed beside
+    them). Returns the members' kernel launches."""
+    from language_detector_tpu_torch import autotune, loadgen, slo
+    t_phase = time.monotonic()
+    records = loadgen.generate(
+        "flash_crowd", n=TUNE_RECORDS, seed=seed,
+        base_rps=TUNE_RECORDS / (TUNE_SPAN_S *
+                                 loadgen.mean_intensity("flash_crowd")))
+    plan = replay_plan(records, [d for d in docs if len(d) < 2000])
+    spec = slo.parse_spec(TUNE_SLO)
+    c0 = fl.counts()
+    warm = replay_lap(plan, fl.port)
+    trajectory: list = []
+
+    def evaluate(ov: dict) -> dict:
+        # full reset, then the candidate: a knob it leaves out falls back
+        # to its default, not to the last candidate's value
+        push_config(fl.sport, {**{k: None for k in TUNE_KNOBS}, **ov})
+        laps = [replay_lap(plan, fl.port) for _ in range(2)]
+        best = max(laps, key=lambda m: autotune.score(m, spec))
+        trajectory.append({"overrides": dict(ov),
+                           "score": autotune.score(best, spec),
+                           "laps": [{k: lap[k] for k in (
+                               "p99_ms", "err_pct", "shed_pct",
+                               "ok_docs_per_sec", "wall_sec")}
+                               for lap in laps]})
+        return best
+
+    tuned = autotune.autotune(evaluate, names=set(TUNE_KNOBS),
+                              rounds=TUNE_ROUNDS, spec=spec)
+    confirm: dict = {"default": [], "winner": []}
+    for _ in range(TUNE_CONFIRM):
+        for name, batch in (("default", {}), ("winner", tuned["best"])):
+            push_config(fl.sport, {**{k: None for k in TUNE_KNOBS},
+                                   **batch})
+            confirm[name].append(replay_lap(plan, fl.port))
+    c1 = fl.counts()
+    members = {s: {k: c1[s][k] - c0[s][k]
+                   for k in ("launches", "dispatches", "flushes")}
+               for s in c1}
+    held = [lap["p99_ms"] <= spec.target_ms and
+            lap["err_pct"] <= spec.err_pct for lap in confirm["winner"]]
+    phase("autotune", card=smi, records=len(records),
+          span_s=records[-1]["arrival_ns"] / 1e9, clients=TUNE_CLIENTS,
+          slo=TUNE_SLO, knobs=list(TUNE_KNOBS), rounds=TUNE_ROUNDS,
+          warm_lap=warm, trajectory=trajectory, evals=tuned["evals"],
+          winner=tuned["best"], winner_metrics=tuned["best_metrics"],
+          baseline_metrics=tuned["baseline_metrics"],
+          confirm={k: [{m: lap[m] for m in ("p99_ms", "err_pct",
+                                            "shed_pct", "ok_docs_per_sec",
+                                            "wall_sec")} for lap in v]
+                   for k, v in confirm.items()},
+          winner_holds_slo=held, members=members,
+          phase_s=time.monotonic() - t_phase)
+    if len(members) != FLEET_WORKERS or any(
+            m["launches"] != m["dispatches"] for m in members.values()):
+        raise AssertionError(f"autotune: a member did not launch the "
+                             f"kernel once a dispatch: {members}")
+    if not all(held):
+        raise AssertionError(f"autotune: the winner {tuned['best']} broke "
+                             f"{TUNE_SLO} in a confirmation lap: "
+                             f"{confirm['winner']}")
+    return int(sum(m["launches"] for m in members.values()))
+
+
+class RecordingProxy:
+    """A localhost HTTP pass-through to one port that keeps the body of
+    every GET it relays: a CLI pointed at it reads the live endpoint,
+    and the smoke formats the very document the CLI read."""
+
+    def __init__(self, port: int):
+        import http.server
+        bodies = self.bodies = []
+
+        class Relay(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                st, body = get_url(f"http://127.0.0.1:{port}{self.path}")
+                bodies.append(body)
+                self.send_response(st or 502)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Relay)
+        self.port = self.server.server_address[1]
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(10)
+
+
+def debug_cli(argv: list) -> tuple:
+    """Worker process (spawned): the port's CLI, debug._main(argv), its
+    standard output captured. Returns (exit code, output, this
+    process's kernel launches)."""
+    import io
+
+    from language_detector_tpu_torch import debug
+    from language_detector_tpu_torch.ops import kernels
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = debug._main(argv)
+    return rc, buf.getvalue(), kernels.launches
+
+
+def debug_phase(fl, docs: list, answer: dict, smi: str, seed: int) -> int:
+    """Phase `debug`: the port's score-trace CLI on the card against the
+    live autotune fleet. --engine-stats over DEBUG_DOCS documents of the
+    mix on the card (a spawned process) gives the codes of a --device
+    cpu run (another spawned process) and of the main path; --slo
+    against the status port's /sloz, --fleet-traces against its /tracez
+    and --admission against one member's /debug/vars, each `python -m
+    language_detector_tpu_torch.debug` through a RecordingProxy, exit 0
+    and print the port formatter's output on the document they read.
+    Returns the engine-stats run's kernel launches."""
+    from language_detector_tpu_torch import debug
+    t_phase = time.monotonic()
+    sample = random.Random(seed).sample(docs, DEBUG_DOCS)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as pool:
+        card_f, cpu_f = (pool.submit(debug_cli, [
+            "--engine-stats", "--device", dev, "--", *sample])
+            for dev in ("cuda", "cpu"))
+        card, cpu = card_f.result(), cpu_f.result()
+    codes = [ln.split(" ", 1)[0]
+             for ln in card[1].splitlines()[:DEBUG_DOCS]]
+    cpu_codes = [ln.split(" ", 1)[0]
+                 for ln in cpu[1].splitlines()[:DEBUG_DOCS]]
+    stats = dict(ln.split() for ln in card[1].splitlines()[DEBUG_DOCS:])
+    member = fl.snap()["members"][0]
+    views = {"--slo": (fl.sport, "/sloz", debug.format_slo),
+             "--fleet-traces": (fl.sport, "/tracez",
+                                debug.format_fleet_traces),
+             "--admission": (member["metrics_port"], "/debug/vars",
+                             debug.format_admission)}
+    out: dict = {}
+    for flag, (port, path, fmt) in views.items():
+        proxy = RecordingProxy(port)
+        try:
+            r = subprocess.run(
+                [sys.executable, "-m", "language_detector_tpu_torch.debug",
+                 flag, f"http://127.0.0.1:{proxy.port}{path}"],
+                cwd=str(ROOT), env=proc_env(), capture_output=True,
+                text=True, timeout=120)
+        finally:
+            proxy.close()
+        fetched = proxy.bodies[-1] if proxy.bodies else b""
+        want = fmt(json.loads(fetched)) + "\n" if fetched else None
+        out[flag] = {"rc": r.returncode,
+                     "lines": len(r.stdout.splitlines()),
+                     "bytes_read": len(fetched),
+                     "equal": r.stdout == want,
+                     "head": r.stdout.splitlines()[:2]}
+        if r.returncode != 0 or r.stdout != want:
+            raise AssertionError(f"debug {flag}: exit {r.returncode}, "
+                                 f"output equal {r.stdout == want}: "
+                                 f"{r.stderr[-1500:]}")
+    phase("debug", card=smi, docs=DEBUG_DOCS, engine_stats={
+        "rc": card[0], "cpu_rc": cpu[0], "launches": card[2],
+        "cpu_equal": codes == cpu_codes,
+        "main_path_equal": codes == [answer[d] for d in sample],
+        "stats": stats}, views=out, phase_s=time.monotonic() - t_phase)
+    if card[0] != 0 or cpu[0] != 0 or codes != cpu_codes or \
+            len(codes) != DEBUG_DOCS:
+        raise AssertionError(f"debug --engine-stats: exit {card[0]} / "
+                             f"{cpu[0]}, {len(codes)} codes, equal to the "
+                             f"CPU run: {codes == cpu_codes}")
+    if card[2] <= 0 or card[2] != int(stats["device_dispatches"]):
+        raise AssertionError(f"debug --engine-stats: {card[2]} launches "
+                             f"over {stats['device_dispatches']} dispatches")
+    return int(card[2])
+
+
+def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
+    """Phases coldstart, autotune and debug (the last two on one 2-member
+    fleet, closed after the CLI read it). Returns their kernel
+    launches."""
+    import shutil
+    import tempfile
+    launches = coldstart_phase(docs, answer, smi, seed)
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-tune-")
+    fl = Fleet(FLEET_WORKERS, tmp, LDT_FLEET_SCALE_UP_DEPTH=0,
+               LDT_SLO=TUNE_SLO, LDT_RESULT_CACHE_MB=0,
+               LDT_RESULT_CACHE_SHM_MB=0)
+    rc = None
+    try:
+        fl.wait(lambda s: s["ready"] == FLEET_WORKERS,
+                "autotune fleet ready")
+        launches += autotune_phase(fl, docs, smi, seed)
+        launches += debug_phase(fl, docs, answer, smi, seed)
+        rc = fl.close()
+    finally:
+        if rc is None:
+            fl.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"autotune fleet exit code {rc}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -2902,7 +3507,9 @@ def main() -> int:
         per_sm, sms = kernels.occupancy(dev)
         occ = {"blocks_per_sm": per_sm, "sms": sms}
     phase("build", kernel_s=round(build_s, 3),
-          packer_s=round(time.monotonic() - t0, 3), lib=str(kernels.LIB),
+          packer_s=round(time.monotonic() - t0, 3),
+          lib=str(kernels.lib_path() if hasattr(kernels, "lib_path")
+                  else kernels.LIB),
           **occ)
 
     tables = load_tables()
@@ -3237,6 +3844,9 @@ def main() -> int:
     launches += shm_phase(bodies, service_want, answer, docs, kernels, smi)
     launches += supervisor_phase(bodies, service_want, smi)
     launches += fleet_phase(bodies, service_want, smi)
+
+    # -- boot-hot start, the SLO autotuner, the score-trace CLI -------------
+    launches += boot_tune_debug(docs, answer, smi, args.seed)
 
     print(json.dumps({"kernels": [{
         "name": "fused_tote",

@@ -47,8 +47,8 @@ from . import knobs, telemetry
 from .locks import make_lock
 
 # point -> where the seam lives in the port (the reference also
-# declares its artifact-load, compile and AOT seams, which the port
-# does not have)
+# declares its artifact-load and compile seams, which the port does
+# not have)
 FAULT_POINTS: dict = {
     "table_upload": "integrity scrub pass, per scanned pool lane (a "
                     "corrupt rule bit-flips one plane of that lane's "
@@ -106,6 +106,13 @@ FAULT_POINTS: dict = {
                   "the poison marker (an error models a doc that "
                   "deterministically kills its scorer batch and "
                   "exercises bisection + quarantine)",
+    "aot_load": "aot.AotStore._load, before a bundle entry is read (a "
+                "corrupt rule bit-flips one entry byte — the CRC must "
+                "refuse the entry, never deserialize it; error/delay "
+                "model a slow or failing bundle volume)",
+    "aot_export": "aot.AotStore.offer, before the compiled scorer is "
+                  "serialized (an error fails the write-back; the "
+                  "dispatch that triggered it is unaffected)",
 }
 
 

@@ -277,6 +277,27 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "startup (the kernel library is already loaded with the "
        "engine) and gate /readyz on it finishing; the duration lands "
        "in the ldt_warmup_ms gauge."),
+    # -- kernel library cache and bundle (ops/kernels.py, aot.py) -----
+    _k("LDT_COMPILE_CACHE_DIR", "str", None,
+       "Directory the fused-tote kernel library is built into by nvcc "
+       "at first use and loaded from by later processes (unset: the "
+       "checkout's build/torch_kernels/). The supervisor and the fleet "
+       "hand every generation and member the same one. Created if "
+       "missing."),
+    _k("LDT_AOT_DIR", "str", None,
+       "Directory of the kernel-library bundle (aot.py): one entry "
+       "per kernel library, keyed on the table digest, torch and CUDA "
+       "versions, device arch, kernel mode and kernel source. Engine "
+       "init loads the library from its entry without a compiler, and "
+       "writes back an entry it had to build. The supervisor and fleet "
+       "default it to a shared per-supervisor dir so spawned and "
+       "standby generations boot hot. Created (with a structured log) "
+       "if missing. Unset under no supervisor = bundle off."),
+    _k("LDT_AOT_REQUIRE", "bool", False,
+       "Strict bundle mode: a missing, stale, or corrupt bundle entry "
+       "raises AotError out of engine init instead of building the "
+       "library with nvcc (deploy guard: a fleet that must boot hot "
+       "fails loud when it cannot)."),
     # -- fleet-shared result cache (service/sharedcache.py) -----------
     _k("LDT_RESULT_CACHE_SHM_MB", "float", 0.0,
        "Budget in MB for the shm-backed fleet-shared result-cache "

@@ -250,11 +250,16 @@ class NgramBatchEngine:
         if self.pool is not None and mesh is None:
             for ln in self.pool.lanes:
                 ln.dt = self.dt
+        # kernel-library bundle (aot.py, LDT_AOT_DIR): the library is
+        # loaded from its bundle entry when one matches, and a library
+        # this process had to build is written back for the next one
+        from .. import aot as aot_mod
+        self._aot = aot_mod.build_from_env(self.dt)
         if cuda:
             # build (or load) the kernel library now, not inside the
             # first flush: a service's flush timeout must not pay nvcc;
             # and finish the table upload before other streams read it
-            kernels._load()
+            kernels._load(self._aot)
             torch.cuda.synchronize(self.device)
         from .. import integrity as integrity_mod
         self.integrity = integrity_mod.build_from_env(self)
@@ -264,7 +269,14 @@ class NgramBatchEngine:
         safe way for another thread (the /metrics renderers) to read
         them."""
         with self._stats_lock:
-            return dict(self.stats)
+            out = dict(self.stats)
+        if self._aot is not None:
+            # the bundle store's counters (flat, so a swap's carry-over
+            # adds them like every other counter)
+            st = self._aot.stats()
+            for k in ("loads", "exports", "refusals"):
+                out[f"aot_{k}"] = out.get(f"aot_{k}", 0) + st[k]
+        return out
 
     def _inflight_bound(self) -> int:
         """Scheduler in-flight bound: how many dispatched jobs may be

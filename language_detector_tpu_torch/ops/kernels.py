@@ -8,10 +8,15 @@ a dispatch is one launch). For CPU tensors, and only then, it runs the
 plain PyTorch version in ops/score.py. Nothing falls back: a failed build
 or a refused launch raises.
 
-The kernel is built with nvcc for sm_90a into build/torch_kernels/ at
-first use (a plain C entry point, loaded with ctypes) and launched on
-PyTorch's current stream. `launches` counts kernel launches, so a run
-can show that its main path went through the kernel.
+The kernel is built with nvcc for sm_90a into LDT_COMPILE_CACHE_DIR
+(default: the checkout's build/torch_kernels/) at first use (a plain C
+entry point, loaded with ctypes) and launched on PyTorch's current
+stream. An engine with a kernel-library bundle armed (LDT_AOT_DIR,
+aot.py) loads the library from its bundle entry instead, with no
+compiler, and writes back a library it had to build. `launches` counts
+kernel launches, so a run can show that its main path went through the
+kernel; `builds` counts nvcc runs, so a run can show that it used no
+compiler.
 """
 from __future__ import annotations
 
@@ -24,14 +29,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import aot
 from ..native import build_lock
 from .device_tables import PLANES, DeviceTables
 from .score import score_chunks_plain, wire_to_device
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_tote.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-LIB = BUILD_DIR / "libldt_fused_tote.so"
+LIB_NAME = "libldt_fused_tote.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # bumped only through count_launch, under _count_lock, since flush
 # workers launch from several threads at once
 launches = 0
+# nvcc runs in this process (a boot-hot process makes none)
+builds = 0
 _count_lock = threading.Lock()
 
 # rows a shard row may hold: the kernel scans chunk starts in int32, and
@@ -63,46 +70,103 @@ def _nvcc() -> str:
     return str(cand) if cand.exists() else "nvcc"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile fused_tote.cu into LIB (always from the source; raises
-    with the compiler's output on failure). Returns the library path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
+def build_dir() -> Path:
+    """The compile cache: LDT_COMPILE_CACHE_DIR or build/torch_kernels/."""
+    return aot.compile_cache_dir()
+
+
+def lib_path() -> Path:
+    return build_dir() / LIB_NAME
+
+
+def _nvcc_build(src: Path, flags, out: Path, verbose: bool) -> Path:
+    """One nvcc run: src into out (a temporary name, then os.replace,
+    so no process loads a half-written library); raises with the
+    compiler's output on failure."""
+    global builds
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags]
     if verbose:
         cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
+    cmd += ["-o", str(tmp), str(src)]
+    with _count_lock:
+        builds += 1
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}"
                            f"{r.stderr}")
-    os.replace(tmp, LIB)
+    os.replace(tmp, out)
     if verbose:
         print(r.stdout + r.stderr, end="")
-    return LIB
+    return out
 
 
-def _load():
+def build(verbose: bool = False) -> Path:
+    """Compile fused_tote.cu into lib_path() (always from the source).
+    Returns the library path."""
+    return _nvcc_build(SOURCE, NVCC_FLAGS, lib_path(), verbose)
+
+
+def build_source(source: str, flags, out) -> Path:
+    """Build kernel source text with `flags` into the library file
+    `out` (the bundle's portable payload; aot.AotStore's builder)."""
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(f".{os.getpid()}.cu")
+    src.write_text(source)
+    try:
+        return _nvcc_build(src, flags, out, False)
+    finally:
+        src.unlink(missing_ok=True)
+
+
+def load_library(path) -> ctypes.CDLL:
+    """The library at `path`, its entry points typed (aot.AotStore's
+    loader)."""
+    lib = ctypes.CDLL(str(path))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.ldt_fused_tote
+    fn.argtypes = [P, L, P, L, P, P, P, P, I, P, P, I, P, I, P, I,
+                   P, I, P, P, P, I, L, I, I, P, I, P]
+    fn.restype = ctypes.c_int
+    occ = lib.ldt_fused_tote_occupancy
+    occ.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I)]
+    occ.restype = ctypes.c_int
+    return lib
+
+
+def _load_built(store) -> ctypes.CDLL:
+    """The compile cache's library, built first when it is missing or
+    older than the source; offered back to the bundle when one is
+    armed."""
+    d = build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / LIB_NAME
+    # one build per compile cache: processes starting at once (test
+    # workers, spawned references, fleet members) wait for the first
+    with build_lock(d / "fused_tote.lock"):
+        if not path.exists() or \
+                path.stat().st_mtime < SOURCE.stat().st_mtime:
+            build()
+    lib = load_library(path)
+    if store is not None:
+        store.offer(aot.LIBRARY, path,
+                    aot.portable_payload(SOURCE.read_text(), NVCC_FLAGS))
+    return lib
+
+
+def _load(store=None):
+    """The kernel library of this process: the one already loaded, else
+    the bundle entry of `store` (an aot.AotStore, verified and loaded
+    without a compiler), else the compile cache's (built with nvcc when
+    missing). Raises when none loads; never gives way to the plain
+    scorer."""
     global _lib
     with _lock:
         if _lib is None:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # one build per checkout: processes starting at once (test
-            # workers, spawned references) wait for the first one's
-            with build_lock(BUILD_DIR / "fused_tote.lock"):
-                if not LIB.exists() or \
-                        LIB.stat().st_mtime < SOURCE.stat().st_mtime:
-                    build()
-            lib = ctypes.CDLL(str(LIB))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            fn = lib.ldt_fused_tote
-            fn.argtypes = [P, L, P, L, P, P, P, P, I, P, P, I, P, I, P, I,
-                           P, I, P, P, P, I, L, I, I, P, I, P]
-            fn.restype = ctypes.c_int
-            occ = lib.ldt_fused_tote_occupancy
-            occ.argtypes = [I, ctypes.POINTER(I), ctypes.POINTER(I)]
-            occ.restype = ctypes.c_int
-            _lib = lib
+            lib = store.lookup(aot.LIBRARY) if store is not None else None
+            _lib = lib if lib is not None else _load_built(store)
         return _lib
 
 

@@ -50,12 +50,15 @@ closed) at least one member is accepting.
 
 On one card the members share the device: each member process opens
 its own CUDA context, uploads its own DeviceTables and loads the one
-kernel library nvcc built into build/torch_kernels/ (so no member
-rebuilds it, and no compile-cache or AOT directory is handed down as
-the reference does with LDT_COMPILE_CACHE_DIR / LDT_AOT_DIR). The fleet
-process itself never touches the card; members are spawned with
-fork+exec (subprocess), so no CUDA state is ever forked. Two members
-on one card need the card's compute mode to be Default.
+fused-tote kernel library. Every member and every generation gets the
+same LDT_COMPILE_CACHE_DIR (where nvcc builds the library; default the
+checkout's build/torch_kernels/) and the same LDT_AOT_DIR (the
+kernel-library bundle, aot.py; default a per-fleet dir under tempdir),
+as the supervisor hands them down: the first member to build the
+library exports it, every other member and every rolling-swap standby
+loads it. The fleet process itself never touches the card; members are
+spawned with fork+exec (subprocess), so no CUDA state is ever forked.
+Two members on one card need the card's compute mode to be Default.
 
 Run: the classic entry point dispatches here —
      LDT_FLEET_WORKERS=3 python -m language_detector_tpu_torch.service.supervisor
@@ -78,7 +81,8 @@ import urllib.request
 from .. import faults, flightrec, knobs, telemetry
 from ..locks import make_lock
 from .recycle import RECYCLE_EXIT_CODE
-from .supervisor import _forward_stop, _log
+from .supervisor import (_forward_stop, _hand_down, _log,
+                         handed_down_dirs)
 
 # Member lifecycle states, declared in tools/lint/fsm_registry.py
 # (machine "fleet-member"): FleetMember.state only moves through the
@@ -674,6 +678,10 @@ def fleet_main(module: str) -> int:
                         or 10.0),
         up_depth=knobs.get_int("LDT_FLEET_SCALE_UP_DEPTH") or 64,
         down_depth=knobs.get_int("LDT_FLEET_SCALE_DOWN_DEPTH") or 0)
+    # one compile cache and one bundle dir for the whole fleet: SHARED
+    # across slots on purpose, unlike the per-slot shm/flightrec dirs —
+    # the library is content-keyed, not owner-keyed
+    cache_dir, aot_dir = handed_down_dirs()
 
     members: list = [FleetMember(slot) for slot in range(n)]
     desired = n
@@ -725,6 +733,7 @@ def fleet_main(module: str) -> int:
             except OSError:
                 pass
             env["LDT_CAPTURE_DIR"] = cap_dir
+        _hand_down(env, cache_dir, aot_dir)
         # the fleet-shared result cache must be ONE file for every
         # member, but LDT_SHM_DIR above is per-slot — pin the path
         # explicitly so members actually share (operator value wins)

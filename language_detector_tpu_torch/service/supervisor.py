@@ -23,11 +23,13 @@ per policy (docs/ROBUSTNESS.md):
 
 Each spawned worker gets LDT_WORKER_GENERATION=<n> in its environment
 (1, 2, ...), which the fronts export as the ldt_worker_generation
-gauge. The port compiles nothing per generation: its one compiled
-artefact, the fused-tote kernel library, is built once by nvcc into
-build/torch_kernels/ under a cross-process lock and every generation
-loads it, so no compile-cache or AOT directory is handed down (the
-reference's LDT_COMPILE_CACHE_DIR / LDT_AOT_DIR continuity). Every
+gauge. Every generation also gets the same LDT_COMPILE_CACHE_DIR (the
+directory the fused-tote kernel library is built into and loaded from;
+operator value, else the checkout's build/torch_kernels/, which
+already holds the library a checkout built) and the same LDT_AOT_DIR
+(the kernel-library bundle, aot.py; operator value, else a
+per-supervisor dir under tempdir), so generation 2+ loads the library
+generation 1 built or exported instead of running nvcc. Every
 generation opens its own CUDA context and uploads its own tables; the
 supervisor itself never touches the card, and spawns its children with
 fork+exec (subprocess), so no CUDA state is ever forked.
@@ -63,7 +65,7 @@ import sys
 import tempfile
 import time
 
-from .. import faults, flightrec, knobs, telemetry
+from .. import aot, faults, flightrec, knobs, telemetry
 from .recycle import RECYCLE_EXIT_CODE
 
 
@@ -136,6 +138,36 @@ def _forward_stop(child, signaled, signum=None):
     return signaled
 
 
+def handed_down_dirs() -> tuple:
+    """(compile-cache dir, bundle dir) every generation or member of
+    this supervisor gets, each created up front (None when it cannot
+    be). LDT_COMPILE_CACHE_DIR defaults to the checkout's build
+    directory, which already holds the library nvcc built there, so
+    generation 1 of a supervised deploy pays no build the checkout
+    has made; LDT_AOT_DIR defaults to a per-supervisor dir under
+    tempdir, which keeps concurrent supervisors (tests, canaries) from
+    sharing entries."""
+    cache_dir = str(aot.compile_cache_dir())
+    aot_dir = knobs.get_str("LDT_AOT_DIR") or os.path.join(
+        tempfile.gettempdir(), f"ldt-aot-{os.getpid()}")
+    out = []
+    for d in (cache_dir, aot_dir):
+        try:
+            os.makedirs(d, exist_ok=True)
+        except OSError:
+            d = None
+        out.append(d)
+    return tuple(out)
+
+
+def _hand_down(env: dict, cache_dir: str | None,
+               aot_dir: str | None) -> None:
+    if cache_dir:
+        env["LDT_COMPILE_CACHE_DIR"] = cache_dir
+    if aot_dir:
+        env["LDT_AOT_DIR"] = aot_dir
+
+
 def main() -> int:
     module = sys.argv[1] if len(sys.argv) > 1 else \
         "language_detector_tpu_torch.service.aioserver"
@@ -151,6 +183,7 @@ def main() -> int:
     backoff_max = knobs.get_float("LDT_CRASH_BACKOFF_MAX_SEC") or 30.0
     loop_window = knobs.get_float("LDT_CRASH_LOOP_WINDOW_SEC") or 60.0
     loop_max = knobs.get_int("LDT_CRASH_LOOP_MAX") or 5
+    cache_dir, aot_dir = handed_down_dirs()
 
     generation = 0
     consec_crashes = 0
@@ -221,6 +254,7 @@ def main() -> int:
         env["LDT_WORKER_GENERATION"] = str(gen)
         env["LDT_SWAPPED"] = "1"
         env["LDT_READY_FILE"] = ready_file
+        _hand_down(env, cache_dir, aot_dir)
         if artifact:
             env["LDT_ARTIFACT_PATH"] = artifact
         standby = subprocess.Popen([sys.executable, "-m", module],
@@ -294,6 +328,7 @@ def main() -> int:
         # through the registry
         env = dict(os.environ)  # ldt-lint: disable=knob-direct-env -- building the child environment, not reading config
         env["LDT_WORKER_GENERATION"] = str(generation)
+        _hand_down(env, cache_dir, aot_dir)
         child = subprocess.Popen([sys.executable, "-m", module], env=env)
         worker = WORKER_RUNNING
         if stopping:  # signal raced the spawn: stop the new worker too

@@ -152,6 +152,26 @@ def startup_ready_task(svc, ports) -> None:
     gates on it), then drop the LDT_READY_FILE handshake the
     supervisor's swap drill polls for. Never raises — a warmup failure
     leaves readiness not-ok, which IS the signal."""
+    # kernel-library bundle preload (aot.py): load every matching
+    # bundle entry BEFORE the warmup batch runs. The engine already
+    # loaded its library at construction, so this finds it memoized
+    # unless the entry appeared since. Best-effort unless
+    # LDT_AOT_REQUIRE, in which case a refused entry skips warmup and
+    # the ready file: readiness stays closed and the supervisor keeps
+    # the old generation.
+    store = getattr(getattr(svc, "_engine", None), "_aot", None)
+    if store is not None:
+        try:
+            n = store.preload()
+            if n:
+                print(json.dumps({"msg": "aot bundle preloaded",
+                                  "entries": n, "dir": store.dir}),
+                      flush=True)
+        except Exception as e:
+            print(json.dumps({"msg": "aot preload failed",
+                              "error": repr(e)}), flush=True)
+            if knobs.get_bool("LDT_AOT_REQUIRE"):
+                return
     if knobs.get_bool("LDT_WARMUP"):
         try:
             svc.warm()

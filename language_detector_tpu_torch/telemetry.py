@@ -321,20 +321,21 @@ METRICS: dict = {
         "result=ok|error|busy|unavailable (POST /profilez, SIGUSR2)."),
     "ldt_aot_loads_total": (
         "counter",
-        "Bucket-ladder executables deserialized from the AOT bundle "
-        "(LDT_AOT_DIR, aot.py) instead of compiled — the boot-hot "
-        "path; one per ladder tier per process."),
+        "Kernel libraries loaded from the bundle (LDT_AOT_DIR, aot.py) "
+        "instead of built by nvcc — the boot-hot path; at most one per "
+        "process."),
     "ldt_aot_exports_total": (
         "counter",
-        "Compiled scorers serialized into the AOT bundle (write-back "
-        "after a compiling launch); the next generation loads these."),
+        "Kernel libraries written into the bundle (write-back after a "
+        "build or a compile-cache load); the next generation loads "
+        "these."),
     "ldt_aot_refused_total": (
         "counter",
-        "AOT bundle entries refused by reason=missing|corrupt|"
-        "digest_mismatch|jax_mismatch|backend_mismatch|kernel_mismatch"
-        "|shape_mismatch|undeserializable|io_error|empty — each "
-        "refusal falls back to a fresh compile (or raises under "
-        "LDT_AOT_REQUIRE) and is overwritten by write-back."),
+        "Bundle entries refused by reason=missing|corrupt|"
+        "digest_mismatch|torch_mismatch|cuda_mismatch|arch_mismatch|"
+        "kernel_mismatch|source_mismatch|undeserializable|io_error|"
+        "empty — each refusal falls back to an nvcc build (or raises "
+        "under LDT_AOT_REQUIRE) and is overwritten by write-back."),
     "ldt_shared_cache_hits_total": (
         "counter",
         "Fleet-shared result-cache hits (LDT_RESULT_CACHE_SHM_MB, "

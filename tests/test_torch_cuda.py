@@ -174,3 +174,55 @@ def test_concurrent_flushes_reuse_leases(cuda_dt, sched_docs):
     assert ring["hits"] > 0
     assert ring["pending_releases"] == 0 and ring["occupancy"] == 0
     assert eng.pipeline_stats()["inflight"] == 0
+
+
+# -- boot-hot start: the kernel-library bundle -----------------------------
+
+_BUNDLE_CHILD = """
+import json, sys
+import torch
+import chip_smoke
+from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+from language_detector_tpu_torch.ops import kernels
+from language_detector_tpu_torch.ops.score import (score_chunks_plain,
+                                                   wire_to_device)
+eng = NgramBatchEngine(device="cuda")
+unequal = 0
+for name, wire in chip_smoke.adversarial_wires(20261016):
+    w = wire_to_device(wire, eng.dt.device)
+    for full in (False, True):
+        unequal += not torch.equal(kernels.score_chunks(eng.dt, w, full),
+                                   score_chunks_plain(eng.dt, w, full))
+print(json.dumps({"builds": kernels.builds, "aot": eng._aot.stats(),
+                  "unequal": unequal}))
+"""
+
+
+def _bundle_child(tmp_path, cache: str, **env) -> dict:
+    import json
+    import subprocess
+    import sys
+    e = chip_smoke.proc_env(LDT_AOT_DIR=tmp_path / "bundle",
+                            LDT_COMPILE_CACHE_DIR=tmp_path / cache, **env)
+    if env.get("LDT_AOT_REQUIRE"):
+        e = chip_smoke.compiler_free_env(e, str(tmp_path / "no-cuda"))
+    r = subprocess.run([sys.executable, "-c", _BUNDLE_CHILD],
+                       cwd=chip_smoke.ROOT, env=e, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return json.loads(r.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_bundle_boot_hot_fresh_process(cuda_dt, tmp_path):
+    """A process with an empty compile cache builds the library and
+    exports it into a bundle; a fresh process with LDT_AOT_REQUIRE, no
+    nvcc on PATH, CUDA_HOME empty and another empty compile cache loads
+    it without a build, and its kernel equals the plain version on the
+    adversarial grids."""
+    cold = _bundle_child(tmp_path, "cache-a")
+    assert cold["builds"] == 1 and cold["aot"]["exports"] == 1
+    hot = _bundle_child(tmp_path, "cache-b", LDT_AOT_REQUIRE=1)
+    assert hot["builds"] == 0 and hot["aot"]["loads"] == 1
+    assert hot["unequal"] == 0 and cold["unequal"] == 0
+    assert not (tmp_path / "cache-b" / kernels.LIB_NAME).exists()

@@ -266,10 +266,11 @@ def test_hints_html_and_chunks_answer_like_reference(cpu_engine,
 def test_port_imports_neither_jax_nor_reference():
     """A fresh process that imports every module of the port
     (pkgutil.walk_packages, the service fronts included) and runs CPU
-    plain, hinted, HTML, span, chunk-vector and service calls, and a
+    plain, hinted, HTML, span, chunk-vector and service calls, a
     detect_codes call through the stream scheduler (dedup, tier lanes,
-    the long-doc lane, depth 2), holds no jax* and no
-    language_detector_tpu module."""
+    the long-doc lane, depth 2), and the traffic model, the autotuner
+    and a score trace (aot, loadgen, autotune and debug among the
+    modules), holds no jax* and no language_detector_tpu module."""
     code = (
         "import importlib.util, pkgutil, sys\n"
         "import language_detector_tpu_torch as lt\n"
@@ -280,6 +281,17 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'language_detector_tpu_torch.service.aioserver' in mods\n"
+        "for m in ('aot', 'loadgen', 'autotune', 'debug'):\n"
+        "    assert 'language_detector_tpu_torch.' + m in mods, m\n"
+        "from language_detector_tpu_torch import autotune, debug, loadgen\n"
+        "recs = loadgen.generate('flash_crowd', n=50, seed=7)\n"
+        "assert len(recs) == 50\n"
+        "res = autotune.autotune(lambda ov: {'p99_ms': 1.0, 'err_pct': 0.0,"
+        "\n"
+        "    'ok_docs_per_sec': 1.0}, names={'LDT_MAX_INFLIGHT'}, rounds=1)\n"
+        "assert res['evals'] >= 1\n"
+        "assert 'summary' in debug.format_trace(debug.trace_detect('hello "
+        "world'))\n"
         "from language_detector_tpu_torch.tables import DATA_DIR\n"
         "ln = open(DATA_DIR / 'eval_corpus.tsv', encoding='utf-8')"
         ".readline()\n"

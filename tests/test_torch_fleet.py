@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -119,6 +120,34 @@ def test_fleet_spawns_n_members_and_drains_clean(tmp_path):
                    if "fake_worker_slot" in line)
     assert slots == ["0", "1", "2"]
     assert '"reason": "fleet-start"' in out
+
+
+def test_fleet_members_share_compile_cache_and_bundle(tmp_path):
+    """Every member gets the same LDT_COMPILE_CACHE_DIR (default: the
+    checkout's build/torch_kernels/) and the same LDT_AOT_DIR (default:
+    one per fleet): the first member to build the kernel library
+    exports it, the others load it."""
+    env = dict(os.environ, FAKE_WORKER_SERVE=str(tmp_path),
+               LDT_FLEET_WORKERS="2", LDT_FLEET_STATUS_PORT=str(
+                   _free_port()))
+    env.pop("LDT_AOT_DIR", None)
+    env.pop("LDT_COMPILE_CACHE_DIR", None)
+    proc = subprocess.Popen(SUPERVISOR[:-1] + ["tests.torch_dirs_worker"],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        assert _wait_fleet(int(env["LDT_FLEET_STATUS_PORT"]),
+                           lambda s: s["ready"] == 2), "fleet never ready"
+    finally:
+        out = _stop(proc)
+    assert proc.returncode == 0, out
+    # members share the supervisor's stdout: read the fields, not lines
+    caches = re.findall(r'"fake_worker_cache_dir": "([^"]*)"', out)
+    bundles = re.findall(r'"fake_worker_aot_dir": "([^"]*)"', out)
+    assert caches == [str(REPO / "build" / "torch_kernels")] * 2
+    assert len(bundles) == 2 and bundles[0] == bundles[1] != "unset"
+    assert f"ldt-aot-{proc.pid}" in bundles[0]
+    os.rmdir(bundles[0])
 
 
 def test_fleet_two_simultaneous_recycles(tmp_path):

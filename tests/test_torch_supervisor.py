@@ -6,9 +6,15 @@ blue/green drill and its aborts (standby death, injected standby_spawn
 fault, unreadable artifact pointer), and PID-1 signal forwarding —
 run through the port's supervisor against the same scriptable
 tests/fake_worker.py child over real subprocesses. The reference's
-LDT_COMPILE_CACHE_DIR and warmup-cache cases have no counterpart: the
-port hands its generations no compile cache. The fleet's cases are in
-tests/test_torch_fleet.py."""
+LDT_COMPILE_CACHE_DIR continuity cases run through
+tests/torch_dirs_worker.py, which also prints LDT_AOT_DIR: every
+generation gets one compile-cache dir (default: the checkout's
+build/torch_kernels/, where nvcc builds the kernel library) and one
+kernel-library bundle dir (default: per supervisor). The reference's
+warmup-timing case (generation 2 warms in under 0.6x generation 1's
+time) is replaced by a check that needs no clock: the blue/green
+standby, generation 2, is handed generation 1's bundle dir. The fleet's
+cases are in tests/test_torch_fleet.py."""
 from __future__ import annotations
 
 import json
@@ -111,6 +117,53 @@ def test_generation_env_handed_to_children(tmp_path):
     assert gens == ["1", "2"]
 
 
+DIRS_SUPERVISOR = SUPERVISOR[:-1] + ["tests.torch_dirs_worker"]
+
+
+def _dirs(stdout: str, key: str) -> list:
+    return [json.loads(line)[key] for line in stdout.splitlines()
+            if key in line]
+
+
+def _run_dirs(env: dict, timeout: float = 30):
+    return subprocess.run(DIRS_SUPERVISOR, cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_compile_cache_dir_shared_across_generations(tmp_path):
+    """Every spawned generation gets the SAME LDT_COMPILE_CACHE_DIR and
+    LDT_AOT_DIR in its env (operator-set here), so generation 2+ loads
+    the kernel library generation 1 built or exported instead of
+    running nvcc; the supervisor creates both up front."""
+    cache, bundle = tmp_path / "kernel-cache", tmp_path / "aot-bundle"
+    env = dict(os.environ, FAKE_WORKER_RECYCLE=str(tmp_path / "marker"),
+               LDT_COMPILE_CACHE_DIR=str(cache), LDT_AOT_DIR=str(bundle))
+    r = _run_dirs(env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert _dirs(r.stdout, "fake_worker_cache_dir") == [str(cache)] * 2
+    assert _dirs(r.stdout, "fake_worker_aot_dir") == [str(bundle)] * 2
+    assert cache.is_dir() and bundle.is_dir()
+
+
+def test_compile_cache_dir_defaults_per_supervisor(tmp_path):
+    """Without the operator knobs every generation still shares one
+    compile-cache dir, the checkout's build/torch_kernels/ (which holds
+    the library the checkout built: generation 1 pays no nvcc build it
+    already has), and one per-supervisor bundle dir under tempdir."""
+    env = dict(os.environ, FAKE_WORKER_RECYCLE=str(tmp_path / "marker"))
+    env.pop("LDT_COMPILE_CACHE_DIR", None)
+    env.pop("LDT_AOT_DIR", None)
+    r = _run_dirs(env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    caches = _dirs(r.stdout, "fake_worker_cache_dir")
+    bundles = _dirs(r.stdout, "fake_worker_aot_dir")
+    assert caches == [str(REPO / "build" / "torch_kernels")] * 2
+    assert len(bundles) == 2 and bundles[0] == bundles[1] != "unset"
+    assert "ldt-aot-" in bundles[0]
+    os.rmdir(bundles[0])
+
+
 # -- blue/green swap drill (SIGHUP) ------------------------------------------
 
 
@@ -165,6 +218,35 @@ def test_sighup_swap_drill_promotes_standby(tmp_path):
             for line in out.splitlines()
             if "fake_worker_generation" in line]
     assert gens == ["1", "2"]
+
+
+def test_standby_generation_inherits_the_bundle_dir(tmp_path):
+    """Boot-hot continuity without a clock (the reference's timing case
+    fails under load): the SIGHUP standby, generation 2, is handed
+    generation 1's LDT_AOT_DIR and LDT_COMPILE_CACHE_DIR, so it loads
+    the library generation 1 exported instead of building it."""
+    env = dict(os.environ, FAKE_WORKER_SERVE=str(tmp_path),
+               LDT_SWAP_TIMEOUT_SEC="20")
+    env.pop("LDT_AOT_DIR", None)
+    env.pop("LDT_COMPILE_CACHE_DIR", None)
+    proc = subprocess.Popen(DIRS_SUPERVISOR, cwd=REPO, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        assert _wait_for(tmp_path / "gen-1.up"), "gen 1 never served"
+        proc.send_signal(signal.SIGHUP)
+        assert _wait_for(tmp_path / "gen-2.up"), "standby never spawned"
+    finally:
+        out = _stop(proc)
+    assert proc.returncode == 0, out
+    assert "swap complete" in out
+    gens = _dirs(out, "fake_worker_generation")
+    bundles = _dirs(out, "fake_worker_aot_dir")
+    caches = _dirs(out, "fake_worker_cache_dir")
+    assert gens == ["1", "2"]
+    assert len(bundles) == 2 and bundles[0] == bundles[1] != "unset"
+    assert caches == [str(REPO / "build" / "torch_kernels")] * 2
+    os.rmdir(bundles[0])
 
 
 def test_sighup_swap_aborts_when_standby_dies(tmp_path):
