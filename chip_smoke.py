@@ -175,6 +175,15 @@ each printing one line:
             language_detector_tpu_torch.debug` through a recording
             proxy, exit 0 and print the port formatter's output on the
             document they read
+  lockdebug the concurrent card paths in a fresh process with the
+            lock-order watchdog on (LDT_LOCK_DEBUG=1 before the port is
+            imported): the engine at depth 2 over 4 pool lanes with the
+            integrity scrub on, over the mix's first 1,024 documents and
+            a 30%-duplicate copy, then the asyncio front's HTTP and
+            unix-socket lanes under 16 clients over the service bodies;
+            0 inversions, a non-empty order graph, launches = dispatches
+            (plus one canary launch a scrubbed lane), answers equal to
+            the main path's and the CPU fronts', under 45 s
 
 --kernel-times runs only device, build and the kernel and wrapper times
 on the timing and mixed wires (phase kernel_times). With --port-root it
@@ -187,8 +196,8 @@ main path's, the traced windows', every accuracy path's, the scheduler,
 service, pool, shards, integrity and eval phases', the shm phase's,
 the supervisor's and fleet members' read from their /metrics
 ldt_kernel_launches_total, the cold-start processes' first detects,
-the autotune fleet members' and the CLI's --engine-stats run) and the
-run's verdict,
+the autotune fleet members', the CLI's --engine-stats run and the
+lockdebug phase's) and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -3455,6 +3464,175 @@ def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
     return launches
 
 
+# -- the lock-order watchdog over the concurrent card paths ---------------------
+
+LOCKDEBUG_DOCS = 1024        # documents of the mix the pooled engine scores
+LOCKDEBUG_SCRUB_S = 0.05     # scrub cadence: a scrub between most flushes
+LOCKDEBUG_SLICE = 128        # the engine's slice (detect_codes batch_size)
+LOCKDEBUG_LANES = ("aio-http", "aio-uds")
+LOCKDEBUG_LIMIT_S = 45       # the phase's time budget on the card
+LOCKDEBUG_FRONT_S = 15       # of which the fronts' traffic
+# watched roles the card paths must take: pool futures, staging-lease
+# leases and releases, the kernel library's load and the launch count
+LOCKDEBUG_ROLES = ("pool.future", "pool.lane", "staging.ring",
+                   "kernels.library", "kernels.launch_count")
+
+
+def lockdebug_worker(device, docs: list, dup: list, bodies: list,
+                     sock_dir: str, lanes: int = POOL_LANES,
+                     clients: int = SERVICE_CLIENTS,
+                     scrub_s: float = LOCKDEBUG_SCRUB_S) -> dict:
+    """The port's concurrent paths in this process, whose locks the
+    environment decides (LDT_LOCK_DEBUG is read when a lock is made, so
+    the caller sets it before the port is imported): a pooled engine
+    (`lanes` lanes, pipeline depth 2, the integrity scrub every
+    `scrub_s`) over `docs` and `dup` in slices of LOCKDEBUG_SLICE, then the asyncio front's HTTP and
+    unix-socket lanes (Fronts) under `clients` clients over `bodies`.
+    Returns the answers, the watchdog's counts (locks, edges,
+    inversions: locks.WATCHDOG.stats() and its edge list), the kernel
+    launches and what they are held to, and the seconds each part
+    took."""
+    import functools
+
+    from language_detector_tpu_torch import knobs, locks
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.ops import kernels
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import load_tables
+    t0 = time.monotonic()
+    with env_knobs(LDT_POOL_LANES=str(lanes),
+                   LDT_SCRUB_INTERVAL_SEC=str(scrub_s)):
+        eng = NgramBatchEngine(load_tables(), reg, device=device,
+                               pipeline_depth=2)
+    try:
+        c0 = pool_counts(eng)
+        s0 = eng.integrity.stats["scrubs"]
+        kernels.launches = 0
+        # slices of LOCKDEBUG_SLICE documents: many dispatches in flight
+        # across the lanes at once
+        got = {"mix": eng.detect_codes(docs, LOCKDEBUG_SLICE),
+               "dup_heavy": eng.detect_codes(dup, LOCKDEBUG_SLICE)}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        pl, hedges, redisp, disp = (b - a for a, b in
+                                    zip(c0, pool_counts(eng)))
+        ring = eng.staging_stats()
+        engine = {"launches": kernels.launches, "pool_launches": pl,
+                  "dispatches": disp, "hedges": hedges,
+                  "redispatches": redisp,
+                  # a clean scrub pass launches one canary batch a lane
+                  "canary_launches": (eng.integrity.stats["scrubs"] - s0)
+                  * len(eng.pool.lanes),
+                  "scrub": dict(eng.integrity.stats),
+                  "pending_releases": ring["pending_releases"],
+                  "staging_occupancy": ring["occupancy"]}
+    finally:
+        eng.pool.close()
+    engine["s"] = time.monotonic() - t0
+    t1 = time.monotonic()
+    fronts = Fronts("language_detector_tpu_torch",
+                    functools.partial(port_service, device=device),
+                    sock_dir)
+    try:
+        aio = fronts.svc["aio"]._engine
+        before = aio.stats_snapshot()["device_dispatches"]
+        kernels.launches = 0
+        answers = {lane: drive_lane(fronts, lane, bodies, clients)[0]
+                   for lane in LOCKDEBUG_LANES}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        front = {"launches": kernels.launches,
+                 "dispatches": aio.stats_snapshot()["device_dispatches"]
+                 - before,
+                 "requests": sum(len(a) for a in answers.values())}
+    finally:
+        fronts.close()
+    front["s"] = time.monotonic() - t1
+    edges = locks.WATCHDOG.edges()
+    return {"lock_debug": knobs.get_bool("LDT_LOCK_DEBUG"),
+            "watchdog": locks.WATCHDOG.stats(),
+            "edges": sorted(f"{a}->{b}" for a, bs in edges.items()
+                            for b in bs),
+            "engine": engine, "front": front, "codes": got,
+            "answers": answers}
+
+
+def lockdebug_run(lock_debug: bool, *args, **kw) -> dict:
+    """lockdebug_worker in a freshly spawned process whose environment
+    has LDT_LOCK_DEBUG set (1) or cleared (0) before it imports the
+    port."""
+    ctx = multiprocessing.get_context("spawn")
+    with env_knobs(LDT_LOCK_DEBUG="1" if lock_debug else "0"), \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=ctx) as pool:
+        return pool.submit(lockdebug_worker, *args, **kw).result()
+
+
+def lockdebug_phase(docs: list, answer: dict, bodies: list, want: dict,
+                    smi: str, seed: int, device="cuda") -> int:
+    """Phase `lockdebug`: the port's concurrent card paths in a fresh
+    process with the lock-order watchdog on (LDT_LOCK_DEBUG=1 before
+    import): the engine at pipeline depth 2 over POOL_LANES pool lanes
+    with the integrity scrub on, over the mix's first LOCKDEBUG_DOCS
+    documents and a 30%-duplicate copy, then the asyncio front's HTTP
+    and unix-socket lanes under SERVICE_CLIENTS clients over the service
+    bodies. Watched locks are then taken by pool futures and lanes,
+    staging-lease leases and releases, the kernel library's load, the
+    launch count, flush workers and the fronts' threads at once. Fails
+    on any LockOrderInversion (the watchdog counts the ones it raised,
+    wherever a thread caught them), an empty edge set, a role of
+    LOCKDEBUG_ROLES never taken, launches other than one a
+    dispatch (pool: dispatches + hedges + redispatches, plus one canary
+    launch a scrubbed lane), answers other than the main path's and the
+    CPU fronts', or over LOCKDEBUG_LIMIT_S seconds. Returns the kernel
+    launches it made."""
+    import shutil
+    import tempfile
+    t0 = time.monotonic()
+    first = docs[:LOCKDEBUG_DOCS]
+    dup = scheduler_inputs(first, seed)["dup_heavy"]
+    tmp = tempfile.mkdtemp(prefix="ldt-smoke-lock-")
+    try:
+        out = lockdebug_run(True, device, first, dup, bodies, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.monotonic() - t0
+    eng, front, dog = out["engine"], out["front"], out["watchdog"]
+    equal = {"mix": out["codes"]["mix"] == [answer[d] for d in first],
+             "dup_heavy": out["codes"]["dup_heavy"] ==
+             [answer[d] for d in dup],
+             **{lane: out["answers"][lane] == want[lane]
+                for lane in LOCKDEBUG_LANES}}
+    phase("lockdebug", card=smi, lock_debug=out["lock_debug"],
+          debug_locks=dog["locks"], edges=dog["edges"],
+          inversions=dog["inversions"], edge_list=out["edges"],
+          roles=dog["roles"],
+          engine=eng, front=front, answers_equal=equal, phase_s=phase_s)
+    bad = []
+    if not out["lock_debug"] or dog["locks"] <= 0 or dog["edges"] <= 0:
+        bad.append("the watchdog did not watch")
+    if dog["inversions"]:
+        bad.append(f"{dog['inversions']} lock-order inversions")
+    unwatched = sorted(set(LOCKDEBUG_ROLES) - set(dog["roles"]))
+    if unwatched:
+        bad.append(f"roles never taken under the watchdog: {unwatched}")
+    if not all(equal.values()):
+        bad.append(f"answers {equal}")
+    if not (eng["launches"] > 0 and eng["pool_launches"] ==
+            eng["dispatches"] + eng["hedges"] + eng["redispatches"] and
+            eng["launches"] == eng["pool_launches"] +
+            eng["canary_launches"]) or eng["pending_releases"] or \
+            eng["staging_occupancy"] or eng["scrub"]["detected"]:
+        bad.append(f"engine launches {eng}")
+    if not front["launches"] == front["dispatches"] > 0:
+        bad.append(f"front launches {front}")
+    if front["s"] > LOCKDEBUG_FRONT_S or phase_s > LOCKDEBUG_LIMIT_S:
+        bad.append(f"took {phase_s:.1f} s (fronts {front['s']:.1f} s)")
+    if bad:
+        raise AssertionError(f"lockdebug: {bad}")
+    return eng["launches"] + front["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -3848,6 +4026,10 @@ def main() -> int:
     # -- boot-hot start, the SLO autotuner, the score-trace CLI -------------
     launches += boot_tune_debug(docs, answer, smi, args.seed)
 
+    # -- the lock-order watchdog over the concurrent card paths -------------
+    launches += lockdebug_phase(docs, answer, bodies, service_want, smi,
+                                args.seed)
+
     print(json.dumps({"kernels": [{
         "name": "fused_tote",
         "route": "cuda",
@@ -3867,5 +4049,87 @@ def main() -> int:
     return 0
 
 
+# -- every process the smoke started ends with it ------------------------------
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def become_subreaper() -> None:
+    """Make this process the parent of every orphaned descendant (Linux
+    PR_SET_CHILD_SUBREAPER): a worker whose supervisor was killed is then
+    still found by stop_descendants."""
+    import ctypes
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(
+            PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+
+
+def descendants(root: int) -> dict:
+    """{pid: (state, command line)} of every live process below root,
+    from /proc."""
+    parent, info = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        parent[int(d)] = int(fields[1])
+        info[int(d)] = (fields[0], cmd.strip()[:200])
+    out, todo = {}, [root]
+    while todo:
+        p = todo.pop()
+        for c, pp in parent.items():
+            if pp == p and c not in out:
+                out[c] = info[c]
+                todo.append(c)
+    return out
+
+
+def stop_descendants(limit_s: float = 10.0) -> dict:
+    """Stop every process this run started that is still there when it
+    ends: multiprocessing's resource tracker by closing its pipe, every
+    other descendant with SIGTERM and, after limit_s, SIGKILL; reap them.
+    Returns {pid: (state, command line)} of those that were still
+    running (not zombies) before that."""
+    import signal
+    from multiprocessing import resource_tracker
+    with contextlib.suppress(Exception):
+        resource_tracker._resource_tracker._stop()
+    me = os.getpid()
+    left = {p: v for p, v in descendants(me).items() if v[0] != "Z"}
+    for sig, wait_s in ((signal.SIGTERM, limit_s), (signal.SIGKILL, 5.0)):
+        live = [p for p, v in descendants(me).items() if v[0] != "Z"]
+        if not live:
+            break
+        for p in live:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(p, sig)
+        t_end = time.monotonic() + wait_s
+        while time.monotonic() < t_end and any(
+                v[0] != "Z" for v in descendants(me).values()):
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(-1, os.WNOHANG)
+            time.sleep(0.05)
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+    return left
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    become_subreaper()
+    try:
+        rc = main()
+    finally:
+        left = stop_descendants()
+        if left:
+            print(f"chip_smoke: stopped {len(left)} process(es) still "
+                  f"running at the end: {left}", file=sys.stderr,
+                  flush=True)
+    sys.exit(rc)

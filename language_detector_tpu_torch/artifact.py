@@ -41,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import faults
 
 MAGIC = 0x4154444C  # "LDTA"
 FOOT_MAGIC = 0x4454444C  # "LDTD"
@@ -130,6 +131,8 @@ def load_artifact(path: str | Path) -> dict:
     packer) — surfaces as a typed ArtifactError with an actionable
     message, so ScoringTables.load_mmap callers (startup, hot swap)
     abort cleanly on the old tables instead of dying on a raw OSError."""
+    if faults.ACTIVE is not None:
+        faults.hit("artifact_load")
     try:
         f = open(path, "rb")
     except OSError as e:
@@ -271,6 +274,14 @@ def load_artifact(path: str | Path) -> dict:
         except BufferError:  # an export still alive: GC reclaims later
             pass
         raise
+    if faults.ACTIVE is not None and out:
+        # chaos seam: a seeded bit-flip in one loaded array models
+        # memory corruption AFTER the digest check passed (the scrub
+        # and canary layers are what must catch it downstream)
+        seed = faults.corruption("artifact_load")
+        if seed is not None:
+            name = sorted(out)[seed % len(out)]
+            out[name] = faults.corrupt_buffer(out[name], seed)
     return out
 
 

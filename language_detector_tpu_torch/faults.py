@@ -46,10 +46,14 @@ import time
 from . import knobs, telemetry
 from .locks import make_lock
 
-# point -> where the seam lives in the port (the reference also
-# declares its artifact-load and compile seams, which the port does
-# not have)
+# point -> where the seam lives in the port (docs/TORCH_ROBUSTNESS.md's
+# table is generated from it; python -m tools.lint_torch checks both
+# directions)
 FAULT_POINTS: dict = {
+    "artifact_load": "artifact.load_artifact: error/delay fire before "
+                     "the mmap/verify; a corrupt rule bit-flips one "
+                     "loaded array AFTER the digest check (models "
+                     "host-memory rot the scrub/canary layers catch)",
     "table_upload": "integrity scrub pass, per scanned pool lane (a "
                     "corrupt rule bit-flips one plane of that lane's "
                     "device tables — models HBM corruption; the scrub "
@@ -62,6 +66,11 @@ FAULT_POINTS: dict = {
     "scorer_launch": "models/ngram._launch, every scorer launch (the "
                      "fused-tote kernel, or the plain version on the "
                      "CPU)",
+    "compile": "ops/kernels._load, before the first build or bundle "
+               "load of the kernel library in a process (the port's "
+               "counterpart of the reference's first-execution XLA "
+               "compile: delay rules model a slow nvcc build or "
+               "bundle volume, error rules a failed one)",
     "queue_put": "both batchers' submit(), before the enqueue",
     "queue_get": "both batchers' collector, after dequeuing a batch "
                  "(an error fails that batch's futures, never the "

@@ -194,7 +194,7 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "is spawned; its readiness closes the circuit."),
     _k("LDT_FLEET_STATUS_PORT", "int", 0,
        "Fleet control-plane HTTP port (127.0.0.1): GET /fleetz (JSON "
-       "member table), /sloz, /tracez and /metrics (the ldt_fleet_* "
+       "member table), /sloz, /tracez and /metrics (the fleet "
        "series), POST /configz (canary-then-fan-out config push). "
        "0 = off."),
     _k("LDT_FLEET_SLOT", "int", None,
@@ -510,6 +510,10 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "Total process count of a multi-process run."),
     _k("JAX_PROCESS_ID", "int", None,
        "This process's index (rank) in a multi-process run."),
+    # -- CUDA toolkit --------------------------------------------------
+    _k("CUDA_HOME", "str", None,
+       "CUDA toolkit root whose bin/nvcc builds the fused-tote kernel "
+       "library (unset or empty: /usr/local/cuda, then nvcc on PATH)."),
 )
 
 KNOBS: dict[str, Knob] = {k.name: k for k in _DECLARATIONS}
@@ -721,3 +725,32 @@ def clear_overrides() -> None:
     global _VERSION
     _OVERRIDES.clear()
     _VERSION += 1
+
+
+def doc_table() -> str:
+    """Markdown table of every declared knob, written into
+    docs/TORCH_OBSERVABILITY.md between the ldt-knob-table markers by
+    `python -m tools.lint_torch --write-knob-docs` and drift-checked by
+    the knob-registry analyzer (the reference's doc_table over the
+    port's knobs)."""
+    rows = ["| Knob | Type | Default | Mutable | Meaning |",
+            "| --- | --- | --- | --- | --- |"]
+    for knob in _DECLARATIONS:
+        if knob.default is None:
+            dflt = "off" if knob.bound else "unset"
+        elif knob.ktype == "levels":
+            dflt = ",".join(f"{x:g}" for x in knob.default)  # type: ignore[attr-defined]
+        elif knob.default == "":
+            dflt = "(empty)"
+        else:
+            dflt = f"{knob.default}"
+        if knob.mutable and knob.mrange is not None:
+            lo, hi = knob.mrange
+            mut = f"yes [{lo:g}, {hi:g}]"
+        elif knob.mutable:
+            mut = "yes"
+        else:
+            mut = ""
+        rows.append(f"| `{knob.name}` | {knob.ktype} | {dflt} | {mut} "
+                    f"| {knob.doc} |")
+    return "\n".join(rows)

@@ -21,9 +21,12 @@ watchdog exists to catch. Nested acquisition of two same-name instances
 is deliberately not ordered (the stack has no such pattern; adding one
 requires a new role name so the graph sees it).
 
-This is the port's copy of language_detector_tpu/locks.py; the
-reference's static lock-ownership check (tools/lint) walks only the
-reference package.
+This is the port's copy of language_detector_tpu/locks.py. The static
+lock-ownership check over the port is `python -m tools.lint_torch`
+(the reference's analyzers, loaded over this package). The watchdog
+also counts the debug locks made, the roles acquired and the
+inversions it raised (stats()), so a run can show what it watched and
+that it found nothing.
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ class _Watchdog:
         self._edges: dict[str, set[str]] = {}  # name -> names acquired
         # while it was held (the recorded legal order)
         self._tls = threading.local()
+        self._made = 0          # DebugLocks built in this process
+        self._inversions = 0    # LockOrderInversions raised
+        self._taken: set[str] = set()  # role names acquired at least once
 
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
@@ -70,6 +76,8 @@ class _Watchdog:
         st = self._stack()
         for held in st:
             if held is lock:
+                with self._mu:
+                    self._inversions += 1
                 raise LockOrderInversion(
                     f"re-acquiring non-reentrant lock {lock.name!r} "
                     "already held by this thread (self-deadlock)")
@@ -83,6 +91,7 @@ class _Watchdog:
             if b in fwd:
                 return
             if self._reaches(b, a):
+                self._inversions += 1
                 raise LockOrderInversion(
                     f"lock-order inversion: acquiring {b!r} while "
                     f"holding {a!r}, but the opposite order "
@@ -91,6 +100,9 @@ class _Watchdog:
 
     def after_acquire(self, lock: "DebugLock") -> None:
         self._stack().append(lock)
+        if lock.name not in self._taken:
+            with self._mu:
+                self._taken.add(lock.name)
 
     def after_release(self, lock: "DebugLock") -> None:
         st = self._stack()
@@ -103,6 +115,20 @@ class _Watchdog:
         """Copy of the recorded order graph (tests/debugging)."""
         with self._mu:
             return {k: set(v) for k, v in self._edges.items()}
+
+    def note_made(self) -> None:
+        with self._mu:
+            self._made += 1
+
+    def stats(self) -> dict:
+        """{"locks": debug locks made, "edges": recorded order edges,
+        "inversions": LockOrderInversions raised, "roles": the role
+        names acquired at least once} in this process."""
+        with self._mu:
+            return {"locks": self._made,
+                    "edges": sum(len(v) for v in self._edges.values()),
+                    "inversions": self._inversions,
+                    "roles": sorted(self._taken)}
 
     def reset(self) -> None:
         with self._mu:
@@ -117,6 +143,7 @@ class DebugLock:
         self.name = name
         self._inner = threading.Lock()
         self._dog = watchdog
+        watchdog.note_made()
 
     def acquire(self, blocking: bool = True,
                 timeout: float = -1) -> bool:

@@ -587,6 +587,8 @@ class NgramBatchEngine:
             self.stats["batches"] += 1
             self.stats["device_dispatches"] += 1
             self.stats["fallback_docs"] += n_fb
+        telemetry.REGISTRY.counter_inc("ldt_span_docs_total",
+                                       len(texts))
         return results
 
     def _detect_hinted(self, texts: list[str], hints,

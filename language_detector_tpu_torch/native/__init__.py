@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..locks import make_lock
 from ..registry import Registry, ULSCRIPT_LATIN
 from ..tables import ScoringTables
 from ..preprocess.pack import PackedBatch, SpanExtent
@@ -70,7 +71,7 @@ def _build() -> bool:
     try:
         subprocess.run([str(_DIR / "build.sh"), so_tmp], check=True,
                        capture_output=True, timeout=120,
-                       env={**os.environ, "LDT_GLUE_OUT": glue_tmp})
+                       env={**os.environ, "LDT_GLUE_OUT": glue_tmp})  # ldt-lint: disable=knob-direct-env -- whole-environment passthrough to the build subprocess, not a config read
         if (_DIR / glue_tmp).exists():
             _install_built(glue_tmp, _GLUE_SO)
         _install_built(so_tmp, _SO)
@@ -245,6 +246,7 @@ def _load_glue():
                     subprocess.run(
                         [str(_DIR / "build.sh"), "--glue-only"],
                         check=True, capture_output=True, timeout=120,
+                        # ldt-lint: disable=knob-direct-env -- whole-environment passthrough to the build subprocess, not a config read
                         env={**os.environ, "LDT_PYINC": incdir,
                              "LDT_GLUE_OUT": tmp})
                     if (_DIR / tmp).exists():
@@ -637,7 +639,7 @@ class StagingRing:
         self._hits = 0             # acquires served from the free list
         self._misses = 0           # acquires that had to allocate
         self._pending = 0          # releases that found a copy in flight
-        self._lock = threading.Lock()
+        self._lock = make_lock("staging.ring")
 
     def _zeros(self, shape: tuple, dtype) -> np.ndarray:
         if not self.pinned:

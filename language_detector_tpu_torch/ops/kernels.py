@@ -23,13 +23,13 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import aot
+from .. import aot, faults, knobs, telemetry
+from ..locks import make_lock
 from ..native import build_lock
 from .device_tables import PLANES, DeviceTables
 from .score import score_chunks_plain, wire_to_device
@@ -46,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = 0
 # nvcc runs in this process (a boot-hot process makes none)
 builds = 0
-_count_lock = threading.Lock()
+_count_lock = make_lock("kernels.launch_count")
 
 # rows a shard row may hold: the kernel scans chunk starts in int32, and
 # 2^23 rows of at most 255 slots sum below 2^31
@@ -61,11 +61,11 @@ _WIRE_TYPES = {"idx": torch.int16, "cnsl": torch.uint8,
                "prior_tbl": torch.uint8}
 
 _lib = None
-_lock = threading.Lock()
+_lock = make_lock("kernels.library")
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    home = knobs.get_str("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
     return str(cand) if cand.exists() else "nvcc"
 
@@ -161,12 +161,25 @@ def _load(store=None):
     the bundle entry of `store` (an aot.AotStore, verified and loaded
     without a compiler), else the compile cache's (built with nvcc when
     missing). Raises when none loads; never gives way to the plain
-    scorer."""
+    scorer.
+
+    The first load in a process is the port's counterpart of the
+    reference's first-execution XLA compile: it passes the `compile`
+    fault seam first and counts one ldt_xla_compiles_total, on the
+    reference's lane label "main" (one library serves every lane). Its
+    time is recorded nowhere the breaker reads: the engine loads the
+    library when it is built, so no flush pays it, and the reference's
+    ldt_xla_compile_ms, which the stall watchdog folds in, is not
+    declared in the port."""
     global _lib
     with _lock:
         if _lib is None:
+            if faults.ACTIVE is not None:
+                faults.hit("compile")
             lib = store.lookup(aot.LIBRARY) if store is not None else None
             _lib = lib if lib is not None else _load_built(store)
+            telemetry.REGISTRY.counter_inc("ldt_xla_compiles_total",
+                                           lane="main")
         return _lib
 
 

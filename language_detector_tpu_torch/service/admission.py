@@ -114,14 +114,14 @@ def note_deadline_expired(n: int = 1):
     telemetry.REGISTRY.counter_inc("ldt_deadline_expired_total", n)
 
 
-def expected_flush_ms(include_compiles: bool = False,
-                      default: float = DEFAULT_FLUSH_MS) -> float:
+def expected_flush_ms(default: float = DEFAULT_FLUSH_MS) -> float:
     """Recent p95 of one engine flush, read from the stage histograms
     (dispatch on the device path, scalar_detect / c_path otherwise).
-    include_compiles folds in the compile-time p95 for watchdog use —
-    a dispatch that recompiles legitimately takes many times the warm
-    latency and must not read as a stall. Peeks only: estimating load
-    must not create empty histogram series in the exposition."""
+    The reference also folds in its XLA compile-time p95 for watchdog
+    use, since its flushes compile; the port loads its kernel library
+    when the engine is built, so no flush compiles and the watchdog
+    reads the flush p95 alone. Peeks only: estimating load must not
+    create empty histogram series in the exposition."""
     reg = telemetry.REGISTRY
     p95 = None
     for stage in ("dispatch", "scalar_detect", "c_path"):
@@ -133,10 +133,6 @@ def expected_flush_ms(include_compiles: bool = False,
                 break
     if p95 is None:
         p95 = default
-    if include_compiles:
-        c = reg.percentile_across("ldt_xla_compile_ms", 95)
-        if c:
-            p95 = max(p95, c)
     return p95
 
 
@@ -332,8 +328,7 @@ class CircuitBreaker:
         """Current watchdog threshold: a flush slower than this counts
         as a failure."""
         return max(self.stall_min_ms,
-                   self.stall_factor *
-                   expected_flush_ms(include_compiles=True))
+                   self.stall_factor * expected_flush_ms())
 
     def allow_device(self) -> bool:
         """Gate one detect call. closed: yes. open: no, until the

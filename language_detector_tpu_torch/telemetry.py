@@ -46,10 +46,13 @@ _PROCESS_START = time.time()
 
 # Central declaration of every ldt_* Prometheus series the package
 # emits: name -> (type, help). This is the single source the /metrics
-# renderers pull HELP/TYPE text from. It is the reference's declaration
-# unchanged (series of mechanisms the port lacks, such as XLA compiles,
-# the device pool and AOT bundles, stay declared; the port never emits
-# them, so only the fronts' fixed gauges for them render, at zero).
+# renderers pull HELP/TYPE text from. It is the reference's declaration,
+# names kept (dashboards and debug.py read them), less two series of
+# events the port does not have: ldt_xla_compile_ms (the port compiles
+# nothing inside a flush, so the stall watchdog folds in no compile
+# time) and ldt_pipeline_donation_hits_total (the port donates no
+# device buffer). ldt_xla_compiles_total counts the kernel library's
+# first load in a process (ops/kernels._load).
 METRICS: dict = {
     "ldt_stage_latency_ms": (
         "histogram",
@@ -61,10 +64,6 @@ METRICS: dict = {
         "counter",
         "Jitted-scorer compilations: first execution of a new "
         "padded wire shape, per dispatch lane."),
-    "ldt_xla_compile_ms": (
-        "histogram",
-        "Dispatch wall time (ms) of first-execution (compiling) "
-        "launches, per lane."),
     "ldt_shed_total": (
         "counter",
         "Requests shed by admission control, by reason "
@@ -202,11 +201,6 @@ METRICS: dict = {
         "gauge",
         "Configured dispatch-pipeline depth (LDT_PIPELINE_DEPTH; 1 = "
         "serial reference path)."),
-    "ldt_pipeline_donation_hits_total": (
-        "counter",
-        "Launches through the donating jitted scorer "
-        "(donate_argnums): the device reused the dispatch buffers "
-        "instead of allocating fresh ones."),
     "ldt_pipeline_staging_ring_occupancy": (
         "gauge",
         "Host staging-ring arrays currently checked out by in-flight "
@@ -797,16 +791,6 @@ class TelemetryRegistry:
         this front, and each poll must not mint an empty series into
         the exposition."""
         return self._hists.get(self._key(name, labels))  # ldt-lint: disable=lock-discipline -- benign racy read of a grow-only map; a stale None only delays one estimator poll
-
-    def percentile_across(self, name: str, q: float):
-        """Max q-th percentile across every label set of a histogram
-        family (None when the family is empty) — the breaker's
-        compile-aware watchdog reads the worst lane."""
-        with self._lock:
-            hists = [h for (n, _), h in self._hists.items() if n == name]
-        vals = [p for p in (h.percentile(q) for h in hists)
-                if p is not None]
-        return max(vals) if vals else None
 
     def counter_inc(self, name: str, amount=1, **labels):
         k = self._key(name, labels)

@@ -23,6 +23,7 @@ import errno
 import hashlib
 import json
 import os
+import time
 from pathlib import Path
 
 import pytest
@@ -32,6 +33,7 @@ from language_detector_tpu_torch import aot, faults, telemetry
 from language_detector_tpu_torch.ops import kernels
 from language_detector_tpu_torch.ops.device_tables import DeviceTables
 from language_detector_tpu_torch.registry import registry
+from language_detector_tpu_torch.service import admission
 from language_detector_tpu_torch.tables import load_tables
 
 KEY = {"digest": "d" * 16, "torch": "2.9.0+cu128", "cuda": "12.8",
@@ -334,6 +336,66 @@ def toolchain(tmp_path, monkeypatch):
         return aot.build_from_env(dt)
 
     return fresh
+
+
+def test_compile_seam_and_series_at_first_load(toolchain):
+    """The kernel library's first load in a process passes the `compile`
+    fault seam and counts ldt_xla_compiles_total{lane=} once; an error
+    rule fails that load and leaves nothing loaded, so the next load
+    retries; a loaded library passes neither again."""
+    reg = telemetry.REGISTRY
+    store = toolchain("cache-c")
+    before = reg.counter_value("ldt_xla_compiles_total", lane="main")
+    faults.configure("compile:error:once")
+    try:
+        with pytest.raises(faults.FaultInjected):
+            kernels._load(store)
+        assert kernels._lib is None and kernels.builds == 0
+        assert reg.counter_value("ldt_xla_compiles_total",
+                                 lane="main") == before
+        lib = kernels._load(store)
+    finally:
+        faults.configure(None)
+    assert kernels.builds == 1
+    assert reg.counter_value("ldt_xla_compiles_total",
+                             lane="main") == before + 1
+    faults.configure("compile:error")
+    try:
+        assert kernels._load(store) is lib
+    finally:
+        faults.configure(None)
+    assert reg.counter_value("ldt_xla_compiles_total",
+                             lane="main") == before + 1
+
+
+def test_library_build_time_leaves_the_stall_watchdog(toolchain,
+                                                      monkeypatch):
+    """The library loads when an engine is built, outside any flush, so
+    a cold nvcc build (about 3 s on the card) must not raise the
+    breaker's stall threshold (max(2 s, 10 x the flush p95)) for the
+    life of the process."""
+    build = kernels._nvcc_build
+
+    def slow_build(*a, **kw):
+        time.sleep(3.0)
+        return build(*a, **kw)
+
+    monkeypatch.setattr(kernels, "_nvcc_build", slow_build)
+    before = admission.CircuitBreaker().stall_ms()
+    kernels._load(toolchain("cache-s"))
+    assert kernels.builds == 1
+    assert admission.CircuitBreaker().stall_ms() == before
+
+
+def test_compile_delay_rule_keeps_the_library(toolchain):
+    store = toolchain("cache-d")
+    faults.configure("compile:delay_ms=5")
+    try:
+        first = kernels._load(store)
+    finally:
+        faults.configure(None)
+    fresh = toolchain("cache-e")
+    assert kernels._load(fresh).data == first.data
 
 
 def _entry(tmp_path) -> Path:

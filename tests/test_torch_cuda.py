@@ -226,3 +226,64 @@ def test_bundle_boot_hot_fresh_process(cuda_dt, tmp_path):
     assert hot["builds"] == 0 and hot["aot"]["loads"] == 1
     assert hot["unequal"] == 0 and cold["unequal"] == 0
     assert not (tmp_path / "cache-b" / kernels.LIB_NAME).exists()
+
+
+# -- the `compile` fault seam: the kernel library's first load ------------------
+
+_COMPILE_CHILD = """
+import json
+import torch
+import chip_smoke
+from language_detector_tpu_torch import telemetry
+from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+from language_detector_tpu_torch.ops import kernels
+from language_detector_tpu_torch.ops.score import (score_chunks_plain,
+                                                   wire_to_device)
+EN = ("this is a simple english sentence with common words that "
+      "should be detected without any trouble at all")
+FR = ("Le gouvernement a annoncé de nouvelles mesures pour aider "
+      "les familles concernées")
+eng = NgramBatchEngine(device="cuda")
+codes = eng.detect_codes([EN, FR] * 40)
+unequal = 0
+for name, wire in chip_smoke.adversarial_wires(20261016):
+    w = wire_to_device(wire, eng.dt.device)
+    for full in (False, True):
+        unequal += not torch.equal(kernels.score_chunks(eng.dt, w, full),
+                                   score_chunks_plain(eng.dt, w, full))
+reg = telemetry.REGISTRY
+print(json.dumps({
+    "builds": kernels.builds, "aot": eng._aot.stats(),
+    "launches": kernels.launches, "unequal": unequal,
+    "codes_ok": codes == ["en", "fr"] * 40,
+    "compiles": reg.counter_value("ldt_xla_compiles_total", lane="main"),
+    "fired": reg.counter_value("ldt_fault_injected_total",
+                               point="compile")}))
+"""
+
+
+@pytest.mark.cuda
+def test_compile_seam_fires_once_and_keeps_words(cuda_dt, tmp_path):
+    """The reference's test_compile_delay_does_not_corrupt_results on the
+    card: a fresh process that loads the kernel library from its bundle
+    (LDT_AOT_REQUIRE, no compiler) under a compile:delay_ms rule passes
+    the seam once, counts one ldt_xla_compiles_total{lane="main"}, and
+    answers and scores as without it: ["en", "fr"] x 40, and the
+    kernel's words equal the plain version's on the adversarial grids."""
+    import json
+    import subprocess
+    import sys
+    _bundle_child(tmp_path, "cache-a")
+    e = chip_smoke.compiler_free_env(chip_smoke.proc_env(
+        LDT_AOT_DIR=tmp_path / "bundle",
+        LDT_COMPILE_CACHE_DIR=tmp_path / "cache-b", LDT_AOT_REQUIRE=1,
+        LDT_FAULTS="compile:delay_ms=50"), str(tmp_path / "no-cuda"))
+    r = subprocess.run([sys.executable, "-c", _COMPILE_CHILD],
+                       cwd=chip_smoke.ROOT, env=e, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.splitlines()[-1])
+    assert out["builds"] == 0 and out["aot"]["loads"] == 1
+    assert out["launches"] > 1
+    assert out["fired"] == 1 and out["compiles"] == 1
+    assert out["codes_ok"] and out["unequal"] == 0
