@@ -175,6 +175,15 @@ each printing one line:
             language_detector_tpu_torch.debug` through a recording
             proxy, exit 0 and print the port formatter's output on the
             document they read
+  tools     the port's offline entry points (language_detector_tpu_torch
+            .tools): the evaluator's reports over eval_corpus.tsv and
+            over 16,384 seeded 30-60-word windows of its documents
+            (streamed from a TSV), and the expected-score table on
+            those windows, equal to the same tools' run on the CPU (a
+            spawned worker); every soak path at a quarter of scale 1
+            answers as the scalar engine, launches equal to the soak
+            engine's dispatches; profile_score's three host-clock lines
+            and the kernel's CUDA-event time on its wire; under 90 s
   lockdebug the concurrent card paths in a fresh process with the
             lock-order watchdog on (LDT_LOCK_DEBUG=1 before the port is
             imported): the engine at depth 2 over 4 pool lanes with the
@@ -196,8 +205,8 @@ main path's, the traced windows', every accuracy path's, the scheduler,
 service, pool, shards, integrity and eval phases', the shm phase's,
 the supervisor's and fleet members' read from their /metrics
 ldt_kernel_launches_total, the cold-start processes' first detects,
-the autotune fleet members', the CLI's --engine-stats run and the
-lockdebug phase's) and the run's verdict,
+the autotune fleet members', the CLI's --engine-stats run, the
+tools phase's and the lockdebug phase's) and the run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -3464,6 +3473,130 @@ def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
     return launches
 
 
+# -- the offline entry points: evaluator, expected scores, soak, profile -------
+
+TOOLS_PREFIX = 16384         # windowed TSV lines the eval and score tools read
+TOOLS_SOAK_SCALE = 0.25      # the soak's per-path counts, times this
+TOOLS_PROFILE = (8192, 5)    # profile_score's batch size and iterations
+TOOLS_LIMIT_S = 90           # the phase's time budget on the card
+
+
+def _rateless(report: str) -> str:
+    """An eval report without the rate in its first line."""
+    first, rest = report.split("\n", 1)
+    return first.rsplit(", ", 1)[0] + "\n" + rest
+
+
+def tools_outputs(device, tmp: str) -> dict:
+    """The evaluator's reports (rate stripped) over eval_corpus.tsv and
+    over the first TOOLS_PREFIX windows of the windowed TSV (written
+    into tmp, streamed from there), and the expected-score table with
+    its line counts on those windows, each through its tool's engine on
+    device; with the seconds each took."""
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.registry import registry
+    from language_detector_tpu_torch.tables import (DATA_DIR,
+                                                    ScoringTables,
+                                                    load_tables)
+    from language_detector_tpu_torch.tools import (eval_corpus, fuzz,
+                                                   gen_expected_score)
+    tsv = fuzz.write_windowed_tsv(Path(tmp) / "windows.tsv", TOOLS_PREFIX)
+    tables = ScoringTables.load()
+    out: dict = {"s": {}}
+    for name, path in (("eval_corpus", DATA_DIR / "eval_corpus.tsv"),
+                       ("eval_windows", tsv)):
+        t0 = time.monotonic()
+        report = eval_corpus.evaluate(eval_corpus.iter_pairs(str(path)),
+                                      tables, device=device)
+        out["s"][name] = time.monotonic() - t0
+        out[name] = _rateless(report)
+        out[name + "_head"] = report.split("\n", 1)[0]
+    t0 = time.monotonic()
+    eng = NgramBatchEngine(load_tables(), registry, device=device)
+    out["expected"] = gen_expected_score.expected_scores(
+        eval_corpus.iter_pairs(str(tsv)), eng.detect_many, eng.tables,
+        registry)
+    out["s"]["expected"] = time.monotonic() - t0
+    return out
+
+
+def tools_reference() -> dict:
+    """Worker process: tools_outputs on the CPU (device="cpu")."""
+    import tempfile
+    torch.set_num_threads(2)
+    with tempfile.TemporaryDirectory(prefix="ldt-smoke-tools-") as tmp:
+        return tools_outputs("cpu", tmp)
+
+
+def tools_phase(smi: str, device="cuda") -> int:
+    """Phase `tools`: the port's offline entry points on the card. The
+    evaluator's reports over eval_corpus.tsv and the windowed TSV's
+    first TOOLS_PREFIX lines, and the expected-score table on those
+    lines, must equal the same tools' run on the CPU (a spawned worker,
+    started first); every soak path at TOOLS_SOAK_SCALE must answer as
+    the scalar engine, with launches equal to the engine's dispatches;
+    profile_score prints its lines and the kernel's CUDA-event time. The
+    phase fails on a difference or over TOOLS_LIMIT_S seconds. Returns
+    the kernel launches it made."""
+    import tempfile
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.ops import kernels
+    from language_detector_tpu_torch.tools import profile_score, soak
+    t0 = time.monotonic()
+    kernels.launches = 0
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        ref_fut = pool.submit(tools_reference)
+        with tempfile.TemporaryDirectory(prefix="ldt-smoke-tools-") as tmp:
+            card = tools_outputs(device, tmp)
+        t_soak = time.monotonic()
+        eng = NgramBatchEngine(device=device)
+        failures = soak.soak(eng, TOOLS_SOAK_SCALE)
+        soak_s = time.monotonic() - t_soak
+        soak_docs = sum(len(v) for v in soak.soak_docs(
+            TOOLS_SOAK_SCALE).values())
+        t_prof = time.monotonic()
+        prof = profile_score.main(*TOOLS_PROFILE, device=device)
+        prof_s = time.monotonic() - t_prof
+        t_ref = time.monotonic()
+        ref = ref_fut.result()
+        ref_wait_s = time.monotonic() - t_ref
+    n_launch = kernels.launches
+    phase_s = time.monotonic() - t0
+    equal = {"eval_corpus": card["eval_corpus"] == ref["eval_corpus"],
+             "eval_windows": card["eval_windows"] == ref["eval_windows"],
+             "expected": card["expected"][1:] == ref["expected"][1:] and
+             np.array_equal(card["expected"][0], ref["expected"][0])}
+    totals = [ln for ln in card["eval_windows"].splitlines()
+              if ln.startswith("_Totals_Known")]
+    phase("tools", card=smi, cpu_equal=equal,
+          eval_heads=[card["eval_corpus_head"], card["eval_windows_head"]],
+          eval_windows_totals=totals,
+          expected_lines=card["expected"][1],
+          expected_label_agreeing=card["expected"][2],
+          expected_cells=int((card["expected"][0] > 0).sum()),
+          soak_scale=TOOLS_SOAK_SCALE, soak_docs=soak_docs,
+          soak_failures=failures,
+          profile={k: v for k, v in prof.items() if k != "words"},
+          launches=n_launch, card_s=card["s"], cpu_s=ref["s"],
+          soak_s=soak_s, profile_s=prof_s, cpu_wait_s=ref_wait_s,
+          phase_s=phase_s)
+    bad = []
+    if not all(equal.values()):
+        bad.append(f"the card's outputs differ from the CPU's: {equal}")
+    if failures:
+        bad.append(f"the soak failed ({failures})")
+    if prof["kernel_ms"] is None or not prof["kernel_ms"] > 0:
+        bad.append(f"no kernel time from profile_score: {prof['kernel_ms']}")
+    if n_launch <= 0:
+        bad.append("no kernel launch")
+    if phase_s > TOOLS_LIMIT_S:
+        bad.append(f"took {phase_s:.1f} s")
+    if bad:
+        raise AssertionError(f"tools: {bad}")
+    return n_launch
+
+
 # -- the lock-order watchdog over the concurrent card paths ---------------------
 
 LOCKDEBUG_DOCS = 1024        # documents of the mix the pooled engine scores
@@ -4025,6 +4158,9 @@ def main() -> int:
 
     # -- boot-hot start, the SLO autotuner, the score-trace CLI -------------
     launches += boot_tune_debug(docs, answer, smi, args.seed)
+
+    # -- the offline entry points: evaluator, expected scores, soak, profile
+    launches += tools_phase(smi)
 
     # -- the lock-order watchdog over the concurrent card paths -------------
     launches += lockdebug_phase(docs, answer, bodies, service_want, smi,

@@ -514,6 +514,13 @@ _DECLARATIONS: tuple[Knob, ...] = (
     _k("CUDA_HOME", "str", None,
        "CUDA toolkit root whose bin/nvcc builds the fused-tote kernel "
        "library (unset or empty: /usr/local/cuda, then nvcc on PATH)."),
+    # -- offline tools (tools/) ----------------------------------------
+    _k("LDT_REFERENCE_DIR", "str", None,
+       "Root of a CLD2 source snapshot (holding cld2/internal/"
+       "unittest_data.h). The offline tools read its golden suite: the "
+       "evaluator's default corpus and the soak's fuzz texts. Unset or "
+       "absent: no golden suite (the soak builds its texts from the "
+       "bench corpus)."),
 )
 
 KNOBS: dict[str, Knob] = {k.name: k for k in _DECLARATIONS}

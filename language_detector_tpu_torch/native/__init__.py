@@ -180,6 +180,25 @@ def _load():
         return _lib
 
 
+def use_library(path) -> ctypes.CDLL:
+    """Serve this process from the packer library at `path` instead of
+    libldtpack_torch.so (tools/profile_pack.py's instrumented twin).
+    Only before the library is first loaded; raises if it was, or if
+    `path` fails the symbol and ABI checks (nothing is rebuilt)."""
+    global _SO, _lib
+    with _lock:
+        if _lib is not None:
+            raise RuntimeError("the packer library is loaded already")
+        prev, _SO = _SO, Path(path)
+        lib = _try_load_all()
+        if lib is None:
+            _SO = prev
+            raise RuntimeError(f"{path}: not a packer library of ABI "
+                               f"{_ABI_VERSION}")
+        _lib = lib
+        return lib
+
+
 def available() -> bool:
     return bool(_load())
 
