@@ -184,6 +184,13 @@ each printing one line:
             answers as the scalar engine, launches equal to the soak
             engine's dispatches; profile_score's three host-clock lines
             and the kernel's CUDA-event time on its wire; under 90 s
+  bench     the port's measuring layer (language_detector_tpu_torch
+            .bench) in fresh processes: --smoke exits 0 with every gate
+            held (lint, telemetry, capture, scrub budgets), the kernel
+            "cuda" and the reference's --smoke keys plus card; --kernel
+            1024 times the kernel on each tier wire with CUDA events;
+            tools.bench_service --aio 8192 16 256 answers every
+            document with no error; each process launched the kernel
   lockdebug the concurrent card paths in a fresh process with the
             lock-order watchdog on (LDT_LOCK_DEBUG=1 before the port is
             imported): the engine at depth 2 over 4 pool lanes with the
@@ -206,7 +213,8 @@ service, pool, shards, integrity and eval phases', the shm phase's,
 the supervisor's and fleet members' read from their /metrics
 ldt_kernel_launches_total, the cold-start processes' first detects,
 the autotune fleet members', the CLI's --engine-stats run, the
-tools phase's and the lockdebug phase's) and the run's verdict,
+tools phase's, the bench processes' and the lockdebug phase's) and the
+run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
@@ -3597,6 +3605,116 @@ def tools_phase(smi: str, device="cuda") -> int:
     return n_launch
 
 
+# -- the port's measuring layer: bench --smoke, --kernel, the service bench ----
+
+# fresh processes of the port's bench, each --device cuda; the wrapper
+# prints the process's kernel launches on stderr as it exits
+BENCH_RUNS = (
+    ("smoke", ("language_detector_tpu_torch.bench", "--smoke")),
+    ("kernel", ("language_detector_tpu_torch.bench", "--kernel", "1024")),
+    ("service", ("language_detector_tpu_torch.tools.bench_service",
+                 "--aio", "8192", "16", "256")),
+)
+BENCH_LIMIT_S = 150          # the phase's time budget on the card
+# the reference's `bench.py --smoke` detail keys (its line's own keys are
+# metric, value, unit, vs_baseline and detail; the port adds card)
+BENCH_SMOKE_KEYS = (
+    "batch_size", "cache_hit_rate", "cached_docs_sec", "capture_budget_ns",
+    "capture_frac_of_request", "capture_ns_per_record", "codes_docs_sec",
+    "doc_bytes_avg", "docs_sec_median", "e2e_ms_per_batch", "epilogue_ms",
+    "fallback_docs", "fault_guard_ns", "faults_disabled",
+    "flightrec_ns_per_event", "http_cold_docs_sec", "http_docs_sec",
+    "http_engine_ratio", "kernel", "kernel_reason", "lint_ms",
+    "longheavy_doc_bytes_avg", "longheavy_docs_sec",
+    "longheavy_docs_sec_median", "longheavy_docs_sec_nochunk",
+    "longheavy_lane_speedup", "longheavy_mb_sec",
+    "longheavy_mb_sec_nochunk", "longheavy_split_docs", "mb_sec",
+    "mixed_dedup_docs", "mixed_docs_sec", "mixed_docs_sec_median",
+    "mixed_fallback_docs", "mixed_retried_docs",
+    "mixed_retry_lane_dispatches", "mixed_retry_offtier_docs",
+    "mixed_run_ms", "n_batches", "pack_ms", "pack_overlap_ratio",
+    "pipeline_depth", "pipeline_donation_hits", "score_ms", "scrub",
+    "stage_latency_ms", "summary_sample", "tier_dispatches",
+    "trace_ns_per_span", "xla_compiles")
+BENCH_COUNTED = """\
+import atexit, runpy, sys
+from language_detector_tpu_torch.ops import kernels
+atexit.register(lambda: print("LDT_KERNEL_LAUNCHES", kernels.launches,
+                              file=sys.stderr, flush=True))
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def bench_run(argv: tuple, device: str, limit_s: float) -> dict:
+    """`python -m argv... --device device` from the checkout in a fresh
+    process: exit code, its last JSON line, its kernel launches, seconds
+    and the tail of its stderr."""
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-c", BENCH_COUNTED, *argv,
+                        "--device", device], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=limit_s)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    counted = [ln.split()[1] for ln in r.stderr.splitlines()
+               if ln.startswith("LDT_KERNEL_LAUNCHES ")]
+    return {"rc": r.returncode,
+            "line": json.loads(lines[-1]) if lines else None,
+            "launches": int(counted[-1]) if counted else 0,
+            "s": time.monotonic() - t0,
+            "stderr": r.stderr[-3000:] if r.returncode else ""}
+
+
+def bench_phase(smi: str, device="cuda") -> int:
+    """Phase `bench`: the port's bench in fresh processes on the card.
+    `--smoke` must exit 0 with every gate held, the kernel "cuda", its
+    keys the reference's --smoke keys (BENCH_SMOKE_KEYS) plus card (the
+    card's name and power, `smi`) and vs_baseline null; `--kernel 1024`
+    must time the kernel on every tier wire with CUDA events, finite
+    and positive; the asyncio front's service bench over 8,192 documents
+    must answer them all with no error; each process must launch the
+    kernel, and the phase must end within BENCH_LIMIT_S. Returns the
+    kernel launches the processes made."""
+    t0 = time.monotonic()
+    runs = {name: bench_run(argv, device, BENCH_LIMIT_S)
+            for name, argv in BENCH_RUNS}
+    phase_s = time.monotonic() - t0
+    phase("bench", card=smi, runs={k: {key: v[key] for key in
+                                      ("rc", "launches", "s", "line")}
+                                   for k, v in runs.items()},
+          phase_s=phase_s)
+    bad = [f"{k}: rc {v['rc']}: {v['stderr']}" for k, v in runs.items()
+           if v["rc"] != 0 or v["line"] is None]
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    smoke, kern, svc = (runs[k]["line"] for k in ("smoke", "kernel",
+                                                  "service"))
+    if smoke["detail"]["kernel"] != "cuda" or smoke["card"] != smi or \
+            smoke["vs_baseline"] is not None:
+        bad.append(f"smoke: kernel {smoke['detail']['kernel']}, card "
+                   f"{smoke['card']}, vs_baseline {smoke['vs_baseline']}")
+    if set(smoke) != {"metric", "value", "unit", "vs_baseline", "detail",
+                      "card"} or set(smoke["detail"]) != \
+            set(BENCH_SMOKE_KEYS):
+        bad.append(f"smoke keys {sorted(smoke)} / "
+                   f"{sorted(set(smoke['detail']) ^ set(BENCH_SMOKE_KEYS))}")
+    tiers = kern["detail"]["tiers"]
+    times = [t["dispatch_ms"].get("cuda") for t in tiers.values()]
+    if "CUDA events" not in kern["unit"] or len(tiers) != 3 or \
+            not all(isinstance(x, float) and math.isfinite(x) and x > 0
+                    for x in times + [kern["value"]]):
+        bad.append(f"kernel: {kern['unit']} {times}")
+    if svc["detail"]["errors"] != 0 or svc["detail"]["total_docs"] != 8192:
+        bad.append(f"service bench {svc['detail']}")
+    idle = [k for k, v in runs.items() if v["launches"] <= 0]
+    if idle:
+        bad.append(f"no kernel launch in {idle}")
+    if phase_s > BENCH_LIMIT_S:
+        bad.append(f"took {phase_s:.1f} s")
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    return sum(v["launches"] for v in runs.values())
+
+
 # -- the lock-order watchdog over the concurrent card paths ---------------------
 
 LOCKDEBUG_DOCS = 1024        # documents of the mix the pooled engine scores
@@ -3606,8 +3724,10 @@ LOCKDEBUG_LANES = ("aio-http", "aio-uds")
 LOCKDEBUG_LIMIT_S = 45       # the phase's time budget on the card
 LOCKDEBUG_FRONT_S = 15       # of which the fronts' traffic
 # watched roles the card paths must take: pool futures, staging-lease
-# leases and releases, the kernel library's load and the launch count
+# leases and releases, the packer's table gate and library lock, the
+# kernel library's load and the launch count
 LOCKDEBUG_ROLES = ("pool.future", "pool.lane", "staging.ring",
+                   "native.table_gate", "native.library",
                    "kernels.library", "kernels.launch_count")
 
 
@@ -4161,6 +4281,9 @@ def main() -> int:
 
     # -- the offline entry points: evaluator, expected scores, soak, profile
     launches += tools_phase(smi)
+
+    # -- the port's measuring layer --------------------------------------------
+    launches += bench_phase(smi)
 
     # -- the lock-order watchdog over the concurrent card paths -------------
     launches += lockdebug_phase(docs, answer, bodies, service_want, smi,

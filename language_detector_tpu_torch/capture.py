@@ -52,6 +52,7 @@ input `bench.py --replay` re-drives against a live fleet.
 from __future__ import annotations
 
 import errno
+import functools
 import glob
 import hashlib
 import json
@@ -61,7 +62,7 @@ import random
 import struct
 import time
 
-from . import knobs
+from . import knobs, telemetry
 from .locks import make_lock
 
 
@@ -100,10 +101,12 @@ FLAG_PRIORITY = 0x01
 FLAG_SHED = 0x02
 
 
+@functools.lru_cache(maxsize=4096)
 def tenant_hash(tenant: str | None) -> int:
     """Stable anonymized tenant identity: 8-byte blake2b of the raw id.
     Raw tenant strings never reach the capture file; replay re-drives
-    distinct tenants as t<hash hex>."""
+    distinct tenants as t<hash hex>. Memoized per tenant (bounded):
+    every captured request hashes its tenant."""
     raw = (tenant or "default").encode("utf-8", "replace")
     return int.from_bytes(
         hashlib.blake2b(raw, digest_size=8).digest(), "little")
@@ -130,29 +133,28 @@ def record_from(trace, meta: dict | None, total_ms: float) -> tuple:
     """One request -> the RECORD field tuple, built entirely from the
     Trace and the completion meta both fronts already assemble."""
     meta = meta or {}
-    status = meta.get("status")
+    get = meta.get
+    status = get("status")
     deadline = getattr(trace, "deadline", None)
     deadline_ms = 0.0
     if deadline is not None:
         deadline_ms = float(getattr(deadline, "budget_ms", 0.0) or 0.0)
-    flags = 0
-    if meta.get("priority"):
-        flags |= FLAG_PRIORITY
-    if meta.get("shed"):
-        flags |= FLAG_SHED
+    flags = (FLAG_PRIORITY if get("priority") else 0) | \
+        (FLAG_SHED if get("shed") else 0)
+    nbytes = int(get("bytes", 0) or 0)
     return (
         int(trace.t0 * 1e9) & 0xFFFFFFFFFFFFFFFF,
         tenant_hash(getattr(trace, "tenant", None)),
-        int(meta.get("cache_bits", 0)) & 0xFFFFFFFFFFFFFFFF,
-        int(meta.get("docs", 0)) & 0xFFFFFFFF,
+        int(get("cache_bits", 0)) & 0xFFFFFFFFFFFFFFFF,
+        int(get("docs", 0)) & 0xFFFFFFFF,
         deadline_ms,
         float(total_ms),
         float(trace.span_ms("parse")),
         float(trace.span_ms("detect")),
         float(trace.span_ms("encode")),
         int(status) & 0xFFFF if isinstance(status, int) else 0,
-        min(size_bucket(int(meta.get("bytes", 0) or 0)), 255),
-        _FRONT_LANE.get(meta.get("front"), 0),
+        min(nbytes.bit_length(), 255) if nbytes > 0 else 0,  # size_bucket
+        _FRONT_LANE.get(get("front"), 0),
         _verdict(status, meta),
         flags,
     )
@@ -331,7 +333,6 @@ def _disable(reason: str, directory: str, detail: str) -> None:
     """Retire the capture plane: structured log + counted disable. The
     service keeps serving — capture is observability, never load-
     bearing."""
-    from . import telemetry
     telemetry.REGISTRY.counter_inc("ldt_capture_disabled_total",
                                    reason=reason)
     _log("capture disabled", reason=reason, dir=directory,
@@ -356,7 +357,6 @@ def observe(trace, meta: dict | None, total_ms: float) -> None:
         return
     segments_before = w._segments
     kept = w.append(record_from(trace, meta, total_ms))
-    from . import telemetry
     if kept:
         telemetry.REGISTRY.counter_inc("ldt_capture_records_total")
     else:

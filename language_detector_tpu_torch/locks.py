@@ -111,6 +111,10 @@ class _Watchdog:
                 del st[i]
                 return
 
+    def holds(self, lock: "DebugLock") -> bool:
+        """Whether the calling thread holds `lock`."""
+        return any(held is lock for held in self._stack())
+
     def edges(self) -> dict[str, set[str]]:
         """Copy of the recorded order graph (tests/debugging)."""
         with self._mu:
@@ -137,7 +141,12 @@ class _Watchdog:
 
 class DebugLock:
     """Order-checked wrapper over threading.Lock, same interface for
-    the `with`-statement call sites the stack uses."""
+    the `with`-statement call sites the stack uses. It also has the
+    Condition protocol (_is_owned, _release_save, _acquire_restore), so
+    threading.Condition(make_lock(name)) asks the watchdog who holds the
+    lock instead of probing it with acquire(False), which the watchdog
+    would take for a self-deadlock; a wait releases the lock and
+    re-acquires it through the order check."""
 
     def __init__(self, name: str, watchdog: _Watchdog) -> None:
         self.name = name
@@ -159,6 +168,15 @@ class DebugLock:
 
     def locked(self) -> bool:
         return self._inner.locked()
+
+    def _is_owned(self) -> bool:
+        return self._dog.holds(self)
+
+    def _release_save(self) -> None:
+        self.release()
+
+    def _acquire_restore(self, _state: None) -> None:
+        self.acquire()
 
     def __enter__(self) -> bool:
         return self.acquire()

@@ -31,7 +31,9 @@ _GLUE_SO = _DIR / "libldtglue_torch.so"
 
 _lib = None
 _init_keepalive: list = []
-_lock = threading.Lock()
+# the library's load (and glue load) and its table upload; taken inside
+# the table gate (_TableGate.reading -> _install), never around it
+_lock = make_lock("native.library")
 
 
 @contextlib.contextmanager
@@ -338,10 +340,15 @@ class _TableGate:
     engine in the process) waits until no reader is left, so it never
     frees or overwrites tables a running call still reads. Readers of
     the installed pair wait while a call for another pair is waiting,
-    so two engines take turns instead of starving each other."""
+    so two engines take turns instead of starving each other.
+
+    The first install of a process loads the library (_load), which
+    builds it when it is missing or stale, so that build runs with the
+    gate held: the lock order is native.table_gate, then
+    native.library."""
 
     def __init__(self):
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = threading.Condition(make_lock("native.table_gate"))
         self._readers = 0
         self._waiting = 0   # calls waiting for another pair
 

@@ -591,9 +591,13 @@ class Trace:
 
     def span_ms(self, name: str) -> float:
         """Total milliseconds across spans with this name (a request can
-        record several dispatch spans)."""
-        return sum((e - s) for n, _, s, e in self.spans if n == name) \
-            * 1e3
+        record several dispatch spans). A plain loop, not sum() over a
+        generator: the capture plane calls it three times a request."""
+        total = 0
+        for n, _, s, e in self.spans:
+            if n == name:
+                total += e - s
+        return total * 1e3
 
     def to_dict(self, total_ms: float | None = None,
                 meta: dict | None = None) -> dict:

@@ -6,6 +6,8 @@
     soak                every engine path against the scalar engine
     profile_score       host-clock timings of the device step
     profile_pack        per-stage cycles of the native packer
+    bench_service       docs/sec through the service fronts over HTTP
+                        (and the unix-socket lane)
 
 Each keeps the reference package's CLI, output and exit codes. The
 ones that run the engine take --device (default cuda, which raises

@@ -12,9 +12,15 @@ exactly as the same run without it.
 """
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+import threading
+
 import pytest
 
 import chip_smoke
+from language_detector_tpu_torch import locks
 from language_detector_tpu_torch.tables import DATA_DIR
 from torch_support import jax_packer
 
@@ -51,9 +57,12 @@ def test_watchdog_watched_and_found_no_inversion(runs):
     assert len(on["edges"]) == dog["edges"]
     # the CPU paths take the card phase's watched roles but the kernel
     # library's and the launch count's, which only a CUDA launch takes
-    cpu_roles = {"pool.future", "pool.lane", "staging.ring"}
+    cpu_roles = {"pool.future", "pool.lane", "staging.ring",
+                 "native.table_gate", "native.library"}
     assert cpu_roles <= set(dog["roles"])
     assert cpu_roles < set(chip_smoke.LOCKDEBUG_ROLES)
+    # the packer's first install nests the library lock in the gate
+    assert "native.table_gate->native.library" in on["edges"]
     # the off run made plain locks only
     assert runs[False]["lock_debug"] is False
     assert runs[False]["watchdog"]["locks"] == 0
@@ -77,3 +86,58 @@ def test_answers_equal_the_run_without_the_watchdog(runs):
     for lane in chip_smoke.LOCKDEBUG_LANES:
         assert len(on["answers"][lane]) == len(bodies)
         assert all(a[0] in (200, 203) for a in on["answers"][lane])
+
+
+def test_condition_waits_and_notifies_through_a_debug_lock():
+    """threading.Condition over a DebugLock: the ownership probe asks
+    the watchdog, wait releases and re-takes the lock through the order
+    check, and notify reaches the waiter."""
+    dog = locks._Watchdog()
+    cond = threading.Condition(locks.DebugLock("test.cond", dog))
+    state = {"ready": False, "woke": False}
+
+    def waiter():
+        with cond:
+            while not state["ready"]:
+                cond.wait(timeout=10)
+            state["woke"] = True
+
+    t = threading.Thread(target=waiter)
+    t.start()
+    with cond:
+        assert cond._is_owned()
+        state["ready"] = True
+        cond.notify_all()
+    t.join(timeout=10)
+    assert not t.is_alive() and state["woke"]
+    assert not cond._is_owned()
+    with pytest.raises(RuntimeError):
+        cond.notify()           # not held: the protocol says so
+    assert dog.stats()["inversions"] == 0
+    assert dog.stats()["roles"] == ["test.cond"]
+
+
+_REVERSED = """
+from language_detector_tpu_torch import locks, native
+from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+eng = NgramBatchEngine(device="cpu")
+eng.detect_codes(["a short english text about the weather"] * 80)
+assert locks.WATCHDOG.edges()["native.table_gate"] == {"native.library"}
+try:
+    with native._lock:
+        with native._gate._cond:
+            pass
+except locks.LockOrderInversion as e:
+    print("INVERSION", e)
+"""
+
+
+def test_reversed_packer_nesting_raises():
+    """Under LDT_LOCK_DEBUG=1, a pack records native.table_gate ->
+    native.library; taking the library lock and then the gate raises."""
+    env = dict(os.environ, LDT_LOCK_DEBUG="1")
+    r = subprocess.run([sys.executable, "-c", _REVERSED], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "INVERSION lock-order inversion: acquiring " \
+        "'native.table_gate' while holding 'native.library'" in r.stdout

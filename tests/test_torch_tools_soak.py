@@ -101,6 +101,18 @@ def test_path_answers_as_scalar(engine, docs, capsys, label):
         assert dispatched
 
 
+def test_cache_path_dispatches_at_scale_2(engine, capsys):
+    """At scale 2 the cache pass's distinct misses (119) exceed the
+    engine's all-C cut (TINY_BATCH_C_PATH, 64), so the batcher's flushes
+    dispatch: on the card, the cache path launches the kernel."""
+    dedup = soak.soak_docs(2)["dedup"]
+    assert len(set(dedup)) > NgramBatchEngine.TINY_BATCH_C_PATH
+    before = engine.stats_snapshot()["device_dispatches"]
+    assert soak.run_cache(engine, dedup) == 0
+    assert engine.stats_snapshot()["device_dispatches"] > before
+    assert "cache hit rate" in capsys.readouterr().out
+
+
 class _Flipped(NgramBatchEngine):
     """An engine whose detect_batch swaps the first two answers that
     differ: one seeded divergence."""
