@@ -158,6 +158,19 @@ each printing one line:
             under LDT_AOT_REQUIRE, else refused, rebuilt and rewritten,
             and (d) a fourth process loads the healed entry with no
             build; every answer equal to the main path's
+  capture   the reference ci.sh's capture/replay + SLO drill
+            (capture_drill) on a 2-member fleet of the asyncio front on
+            the card under the lock-order watchdog, with
+            LDT_CAPTURE_DIR, LDT_FLIGHTREC_DIR, LDT_SLO
+            p99_ms=1,err_pct=2,window_sec=8 and a tenant quota of 8
+            documents: the burn-rate alert fires on /sloz and recovers,
+            the hot tenant's sheds show on /fleetz while the other
+            tenant is served, the capture holds one record a request
+            (sheds included) from both members in arrival order,
+            slo_breach and slo_recovered reach the flight recorder;
+            the merged capture replayed at 4x against the autotune
+            phase's fleet (booted fresh) completes every request with
+            no drop; every member launched the kernel once a dispatch
   autotune  the SLO autotuner (autotune.autotune over LDT_MAX_INFLIGHT
             and LDT_MAX_QUEUE_DOCS, LDT_SLO p99_ms=500,err_pct=1) on a
             2-member fleet of the asyncio front (no result caches):
@@ -184,6 +197,16 @@ each printing one line:
             answers as the scalar engine, launches equal to the soak
             engine's dispatches; profile_score's three host-clock lines
             and the kernel's CUDA-event time on its wire; under 90 s
+  trainers  the port's quad-table trainers (language_detector_tpu_torch
+            .tools.train_quad_tables, calibrate_quad_tables) at their
+            defaults over the committed CLDR fixture
+            (tests/data/torch_trainer_cldr.tsv): train once, calibrate
+            for 2 iterations with the dev documents on the card; the
+            npz arrays, each round's dev hits, wins and bias and the
+            expected scores equal a CPU worker's run; launches equal
+            the engines' dispatches, card memory does not grow across
+            rounds, the calibrated tables answer some dev documents
+            differently from the shipped ones; each step's seconds
   bench     the port's measuring layer (language_detector_tpu_torch
             .bench) in fresh processes: --smoke exits 0 with every gate
             held (lint, telemetry, capture, scrub budgets), the kernel
@@ -212,8 +235,9 @@ main path's, the traced windows', every accuracy path's, the scheduler,
 service, pool, shards, integrity and eval phases', the shm phase's,
 the supervisor's and fleet members' read from their /metrics
 ldt_kernel_launches_total, the cold-start processes' first detects,
-the autotune fleet members', the CLI's --engine-stats run, the
-tools phase's, the bench processes' and the lockdebug phase's) and the
+the capture drill's and replay's members, the autotune fleet
+members', the CLI's --engine-stats run, the tools phase's, the
+trainers', the bench processes' and the lockdebug phase's) and the
 run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
@@ -3455,13 +3479,15 @@ def debug_phase(fl, docs: list, answer: dict, smi: str, seed: int) -> int:
 
 
 def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
-    """Phases coldstart, autotune and debug (the last two on one 2-member
-    fleet, closed after the CLI read it). Returns their kernel
-    launches."""
+    """Phases coldstart, capture, autotune and debug (the capture's
+    replay, autotune and debug on one 2-member fleet, closed after the
+    CLI read it). Returns their kernel launches."""
     import shutil
     import tempfile
     launches = coldstart_phase(docs, answer, smi, seed)
     tmp = tempfile.mkdtemp(prefix="ldt-smoke-tune-")
+    t_capture = time.monotonic()
+    drill = capture_drill(os.path.join(tmp, "capture"))
     fl = Fleet(FLEET_WORKERS, tmp, LDT_FLEET_SCALE_UP_DEPTH=0,
                LDT_SLO=TUNE_SLO, LDT_RESULT_CACHE_MB=0,
                LDT_RESULT_CACHE_SHM_MB=0)
@@ -3469,6 +3495,7 @@ def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
     try:
         fl.wait(lambda s: s["ready"] == FLEET_WORKERS,
                 "autotune fleet ready")
+        launches += capture_phase(drill, fl, smi, t_capture)
         launches += autotune_phase(fl, docs, smi, seed)
         launches += debug_phase(fl, docs, answer, smi, seed)
         rc = fl.close()
@@ -3479,6 +3506,234 @@ def boot_tune_debug(docs: list, answer: dict, smi: str, seed: int) -> int:
     if rc != 0:
         raise AssertionError(f"autotune fleet exit code {rc}")
     return launches
+
+
+# -- capture/replay + SLO: the reference ci.sh drill over a fleet --------------
+
+# a 1 ms latency target every served request overshoots, so the drill
+# burns budget deterministically, and an 8 s fast window it recovers in
+CAPTURE_SLO = "p99_ms=1,err_pct=2,window_sec=8"
+CAPTURE_QUOTA_DOCS = 8       # LDT_TENANT_QUOTA_DOCS: the hot tenant sheds
+CAPTURE_DRILL = 12           # requests of 4 documents that burn budget
+CAPTURE_HOT = (12, 4)        # hot tenant: clients x requests of 8 docs
+CAPTURE_BASE = 12            # the other tenant's requests of 8 docs
+CAPTURE_REQUESTS = CAPTURE_DRILL + CAPTURE_HOT[0] * CAPTURE_HOT[1] + \
+    CAPTURE_BASE
+CAPTURE_SPEEDUP = 4          # the replay's schedule compression
+
+
+def capture_post(port: int, tenant: str, docs: int,
+                 timeout: float = 60) -> int:
+    """One detect request of `docs` documents for `tenant` on a fresh
+    connection (fresh connections hop the fleet's members); its
+    status."""
+    import urllib.error
+    import urllib.request
+    body = json.dumps({"request": [
+        {"text": f"the quick brown fox jumps over the lazy dog {i}"}
+        for i in range(docs)]}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/", data=body,
+        headers={"Content-Type": "application/json",
+                 "X-LDT-Tenant": tenant})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+
+
+def capture_drill(tmp: str, module: str | None = None) -> dict:
+    """The capture/replay + SLO drill of the reference's ci.sh (its
+    `capture/replay + SLO smoke`, up to the replay) on a 2-member fleet
+    of `module` (None: the port's asyncio front on the card) under the
+    lock-order watchdog, with LDT_CAPTURE_DIR, LDT_FLIGHTREC_DIR,
+    LDT_SLO=CAPTURE_SLO and a per-tenant quota of CAPTURE_QUOTA_DOCS
+    documents. Raises unless: every drill request answers 200 and the
+    burn-rate alert fires on /sloz, then recovers once the fast window
+    ages out; the hot tenant's burst is partly shed (429) and partly
+    served while the other tenant's requests all answer 200, and the
+    sheds show as per-tenant SLIs on /fleetz; SIGINT drains the fleet to
+    exit 0; the capture has one directory a member and one record a
+    request, sheds included, its sheds equal the 429s, two tenants, in
+    arrival order; slo_breach and slo_recovered are in the flight
+    recorder. The members warm up (LDT_WARMUP=1: one 96-document flush
+    through the device path, outside the HTTP lanes, so it is neither
+    captured nor scored by the SLO). Returns the merged records, the
+    statuses and SLIs, the members' /metrics counts read before the
+    drain, and the seconds."""
+    import glob
+    import threading
+    from language_detector_tpu_torch import capture, flightrec
+    t0 = time.monotonic()
+    cap, frec = os.path.join(tmp, "capture"), os.path.join(tmp, "flightrec")
+    fl = Fleet(FLEET_WORKERS, tmp, module, LDT_CAPTURE_DIR=cap,
+               LDT_FLIGHTREC_DIR=frec, LDT_SLO=CAPTURE_SLO,
+               LDT_TENANT_QUOTA_DOCS=CAPTURE_QUOTA_DOCS,
+               LDT_RESULT_CACHE_MB=0, LDT_RESULT_CACHE_SHM_MB=0,
+               LDT_LOCK_DEBUG=1, LDT_WARMUP=1)
+    rc = None
+    s: dict = {}
+
+    def sloz() -> dict | None:
+        st, body = get_url(f"http://127.0.0.1:{fl.sport}/sloz")
+        return json.loads(body) if st == 200 else None
+
+    def wait_sloz(pred, what: str, limit_s: float) -> dict:
+        return wait_for(lambda: (lambda d: d if d is not None and pred(d)
+                                 else None)(sloz()), what, limit_s, fl.proc)
+
+    try:
+        fl.wait(lambda f: f["ready"] == FLEET_WORKERS, "2 members ready")
+        s["ready"] = time.monotonic() - t0
+        # the burn-rate alert: every request misses the 1 ms target
+        drill = [capture_post(fl.port, "base", 4)
+                 for _ in range(CAPTURE_DRILL)]
+        if drill != [200] * CAPTURE_DRILL:
+            raise AssertionError(f"capture: drill statuses {drill}")
+        breach = wait_sloz(lambda d: d.get("alert") == "breach",
+                           "capture: slo alert breach", 60)
+        if not breach["enabled"] or breach["spec"]["target_ms"] != 1.0 \
+                or "base" not in breach["tenants"]:
+            raise AssertionError(f"capture: /sloz {breach}")
+        s["breach"] = time.monotonic() - t0
+        # recovery: the fast window ages out, nothing else burns
+        wait_sloz(lambda d: d.get("alert") == "ok",
+                  "capture: slo alert recovered", 120)
+        s["recovered"] = time.monotonic() - t0
+        # the throttled tenant sheds; the other keeps serving
+        results: dict = {"hot": [], "base": []}
+        lock = threading.Lock()
+
+        def burst(tenant: str, n: int) -> None:
+            for _ in range(n):
+                st = capture_post(fl.port, tenant, 8, timeout=120)
+                with lock:
+                    results[tenant].append(st)
+
+        threads = [threading.Thread(target=burst,
+                                    args=("hot", CAPTURE_HOT[1]))
+                   for _ in range(CAPTURE_HOT[0])]
+        threads.append(threading.Thread(target=burst,
+                                        args=("base", CAPTURE_BASE)))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("capture: a burst client hung")
+        hot_shed = results["hot"].count(429)
+        hot_ok = results["hot"].count(200)
+        if results["base"] != [200] * CAPTURE_BASE:
+            raise AssertionError(f"capture: the throttle bled across "
+                                 f"tenants: {results['base']}")
+        if not hot_shed or not hot_ok or hot_shed + hot_ok != \
+                CAPTURE_HOT[0] * CAPTURE_HOT[1]:
+            raise AssertionError(f"capture: hot tenant {results['hot']}")
+        # per-tenant SLIs ride the 8 s fast window: read them right away
+        fz = fl.wait(lambda f: f.get("slo", {}).get("tenants", {})
+                     .get("hot", {}).get("shed", 0) >= 1 and
+                     "base" in f.get("slo", {}).get("tenants", {}),
+                     "capture: per-tenant SLIs on /fleetz", 30)
+        t_hot = fz["slo"]["tenants"]["hot"]
+        if not t_hot["count"] >= t_hot["shed"] > 0:
+            raise AssertionError(f"capture: /fleetz hot tenant {t_hot}")
+        counts = fl.counts()
+        rc = fl.close()
+    finally:
+        if rc is None:
+            fl.close()
+    s["drained"] = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"capture: fleet exit {rc}: "
+                             f"{fl.log()[-2000:]}")
+    members = sorted(os.path.basename(d)
+                     for d in glob.glob(os.path.join(cap, "m*")))
+    records = capture.merge_captures(cap)
+    sheds = sum(1 for r in records if r["shed"])
+    tenants = sorted({r["tenant"] for r in records})
+    arrivals = [r["arrival_ns"] for r in records]
+    events = [e["ev"] for ring in glob.glob(
+        os.path.join(frec, "**", "flightrec-*.ring"), recursive=True)
+        for e in flightrec.read_ring(ring)["events"]]
+    bad = []
+    if len(members) != FLEET_WORKERS:
+        bad.append(f"per-member capture dirs {members}")
+    if len(records) != CAPTURE_REQUESTS:
+        bad.append(f"{len(records)} records for {CAPTURE_REQUESTS} "
+                   "requests")
+    if sheds != hot_shed:
+        bad.append(f"capture sheds {sheds} != {hot_shed} 429s")
+    if len(tenants) != 2:
+        bad.append(f"tenants {tenants}")
+    if arrivals != sorted(arrivals):
+        bad.append("the merge is not in arrival order")
+    for ev in ("slo_breach", "slo_recovered"):
+        if ev not in events:
+            bad.append(f"no {ev} in the flight recorder")
+    if bad:
+        raise AssertionError(f"capture: {bad}")
+    return {"records": records, "hot_shed": hot_shed, "hot_ok": hot_ok,
+            "tenants": tenants, "members": members, "counts": counts,
+            "hot_sli": t_hot, "slo_events": sorted(
+                {e for e in events if e.startswith("slo_")}), "s": s}
+
+
+def capture_phase(drill: dict, fl, smi: str, t_phase: float) -> int:
+    """Phase `capture`: the capture drill's result on the card's members
+    (capture_drill, run before the fleet `fl` booted), then its merged
+    capture replayed at CAPTURE_SPEEDUP against `fl`, a fresh fleet of
+    the card's members (capture_replay). Every member of both fleets
+    must have launched the kernel once a device dispatch (its /metrics;
+    the drill's requests of 4 and 8 documents answer on the all-C path,
+    so its members' launches are their warm-up flushes). Returns the
+    kernel launches of the drill's members and the replay."""
+    c0 = fl.counts()
+    t0 = time.monotonic()
+    rep = capture_replay(drill["records"], fl.port)
+    replay_s = time.monotonic() - t0
+    c1 = fl.counts()
+    replay = {slot: {k: c1[slot][k] - c0[slot][k]
+                     for k in ("launches", "dispatches", "flushes")}
+              for slot in c1}
+    members = {f"drill-m{slot}": {k: c[k] for k in ("launches",
+                                                     "dispatches",
+                                                     "flushes")}
+               for slot, c in drill["counts"].items()}
+    members.update({f"replay-m{slot}": c for slot, c in replay.items()})
+    n_launch = int(sum(m["launches"] for m in members.values()))
+    phase("capture", card=smi, slo=CAPTURE_SLO,
+          quota_docs=CAPTURE_QUOTA_DOCS, records=len(drill["records"]),
+          hot_shed=drill["hot_shed"], hot_ok=drill["hot_ok"],
+          hot_sli=drill["hot_sli"], slo_events=drill["slo_events"],
+          capture_dirs=drill["members"], drill_s=drill["s"],
+          replay={k: rep[k] for k in ("requests", "completed", "speedup",
+                                      "counts", "schedule", "sli")},
+          replay_s=replay_s, members=members, launches=n_launch,
+          phase_s=time.monotonic() - t_phase)
+    if len(members) != 2 * FLEET_WORKERS or n_launch <= 0 or any(
+            m["launches"] != m["dispatches"] for m in members.values()):
+        raise AssertionError(f"capture: a member did not launch the "
+                             f"kernel once a dispatch: {members}")
+    return n_launch
+
+
+def capture_replay(records: list, port: int) -> dict:
+    """The drill's replay: the merged capture re-driven at
+    CAPTURE_SPEEDUP against a live fleet on `port` through the port
+    bench's replay_records; raises unless every request completed and
+    none dropped. Returns its result."""
+    from language_detector_tpu_torch.bench.replay import replay_records
+    got = replay_records(records, port, speedup=CAPTURE_SPEEDUP)
+    if not got["completed"] == got["requests"] == len(records) or \
+            got["counts"]["drop"] != 0:
+        raise AssertionError(f"capture replay: completed "
+                             f"{got['completed']} of {got['requests']} "
+                             f"({len(records)} records), counts "
+                             f"{got['counts']}")
+    return got
 
 
 # -- the offline entry points: evaluator, expected scores, soak, profile -------
@@ -3602,6 +3857,144 @@ def tools_phase(smi: str, device="cuda") -> int:
         bad.append(f"took {phase_s:.1f} s")
     if bad:
         raise AssertionError(f"tools: {bad}")
+    return n_launch
+
+
+# -- the quad-table trainers: train, calibrate ----------------------------------
+
+TRAIN_FIXTURE = ROOT / "tests" / "data" / "torch_trainer_cldr.tsv"
+TRAIN_ITERS = 2              # calibrate's iterations (the tool's default: 8)
+TRAIN_LIMIT_S = 60           # the phase's time budget on the card
+
+
+def trainer_outputs(device) -> dict:
+    """The trainers at their defaults (65,536 primary and 8,192 dual
+    buckets; 12 dev documents a language of 20 words) over the committed
+    CLDR fixture (no octagram words: the snapshot is absent): the
+    trained npz, then `calibrate` for TRAIN_ITERS iterations with the
+    dev documents scored by the port's engine on `device`, and the dev
+    documents scored once under the shipped and once under the
+    calibrated tables. Returns the arrays, each round's record, what
+    calibrate printed, the engines' dispatches, the answers that differ
+    between shipped and calibrated tables, and the seconds each step
+    took."""
+    import io
+    from language_detector_tpu_torch.registry import registry
+    from language_detector_tpu_torch.tables import load_tables
+    from language_detector_tpu_torch.tools import calibrate_quad_tables as cq
+    from language_detector_tpu_torch.tools import train_quad_tables as tq
+    s: dict = {}
+    t0 = time.monotonic()
+    phrases = tq.read_phrases(TRAIN_FIXTURE)
+    base = load_tables()
+    corpus = tq.collect_corpus(base, registry, words=[], phrases=phrases)
+    s["corpus"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    trained = tq.train(base, registry, corpus, verbose=False)
+    s["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    docs = cq.build_dev_docs(base, registry, words=[], phrases=phrases)
+    s["dev_docs"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        run = cq.calibrate(base, corpus, docs, iters=TRAIN_ITERS,
+                           device=device)
+    s["calibrate"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    texts = [t for _, t in docs]
+    shipped, st0 = cq._detect(base, texts, device)
+    calibrated, st1 = cq._detect(cq.make_tables(base, run["out"]), texts,
+                                 device)
+    s["compare"] = time.monotonic() - t0
+    return {"trained": trained, "out": run["out"],
+            "iterations": run["iterations"], "bias": run["bias"],
+            "best_dev_hits": run["best_dev_hits"],
+            "printed": printed.getvalue(), "docs": len(docs),
+            "phrases": len(phrases),
+            "dispatches": sum(i["dispatches"] for i in run["iterations"]) +
+            run["expected_dispatches"] + st0["device_dispatches"] +
+            st1["device_dispatches"],
+            "differ": sum(a.summary_lang != b.summary_lang
+                          for a, b in zip(shipped, calibrated)),
+            "s": s}
+
+
+def trainers_reference() -> dict:
+    """Worker process: trainer_outputs on the CPU (device="cpu")."""
+    torch.set_num_threads(2)
+    return trainer_outputs("cpu")
+
+
+def arrays_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def trainers_phase(smi: str, device="cuda") -> int:
+    """Phase `trainers`: the port's quad-table trainers on the card
+    (trainer_outputs), beside the same run on the CPU in a spawned
+    worker (started first). The trained npz and the calibrated npz
+    (its expected scores included) must be array-equal to the CPU's,
+    each round's dev hits, wins and bias and the best round's bias
+    equal, calibrate's printed lines equal; the kernel must have
+    launched once a dispatch of the engines the run built, card memory
+    must not grow from round to round, and the calibrated tables must
+    answer some dev documents differently from the shipped ones. Prints
+    each step's seconds beside the card; fails over TRAIN_LIMIT_S.
+    Returns the kernel launches."""
+    from language_detector_tpu_torch.ops import kernels
+    t0 = time.monotonic()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        ref_fut = pool.submit(trainers_reference)
+        kernels.launches = 0
+        card = trainer_outputs(device)
+        n_launch = kernels.launches
+        t_ref = time.monotonic()
+        ref = ref_fut.result()
+        ref_wait_s = time.monotonic() - t_ref
+    phase_s = time.monotonic() - t0
+    rounds = card["iterations"]
+    equal = {
+        "trained": arrays_equal(card["trained"], ref["trained"]),
+        "calibrated": arrays_equal(card["out"], ref["out"]),
+        "rounds": [{k: r[k] for k in ("dev_hits", "wins", "bias")}
+                   for r in rounds] ==
+        [{k: r[k] for k in ("dev_hits", "wins", "bias")}
+         for r in ref["iterations"]],
+        "bias": card["bias"] == ref["bias"],
+        "printed": card["printed"] == ref["printed"],
+        "differ": card["differ"] == ref["differ"]}
+    card_bytes = [r["card_bytes"] for r in rounds]
+    phase("trainers", card=smi, phrases=card["phrases"],
+          dev_docs=card["docs"], iterations=TRAIN_ITERS,
+          buckets=[int(card["trained"]["quadgram_meta"][1]),
+                   int(card["trained"]["quadgram2_meta"][1])],
+          dev_hits=[r["dev_hits"] for r in rounds],
+          best_dev_hits=card["best_dev_hits"],
+          bias_entries=sum(abs(v - 1) > 0.01 for v in card["bias"].values()),
+          expected_cells=int((card["out"]["expected_score_override"] > 0)
+                             .sum()),
+          differ_from_shipped=card["differ"], cpu_equal=equal,
+          launches=n_launch, dispatches=card["dispatches"],
+          card_bytes=card_bytes, card_s=card["s"], cpu_s=ref["s"],
+          cpu_wait_s=ref_wait_s, phase_s=phase_s)
+    bad = []
+    if not all(equal.values()):
+        bad.append(f"the card's run differs from the CPU's: {equal}")
+    if n_launch <= 0 or n_launch != card["dispatches"]:
+        bad.append(f"{n_launch} launches over {card['dispatches']} "
+                   "dispatches")
+    if None in card_bytes or any(b > card_bytes[0] for b in card_bytes):
+        bad.append(f"card memory unread or grew across rounds: "
+                   f"{card_bytes}")
+    if card["differ"] <= 0:
+        bad.append("the calibrated tables answer as the shipped ones")
+    if phase_s > TRAIN_LIMIT_S:
+        bad.append(f"took {phase_s:.1f} s")
+    if bad:
+        raise AssertionError(f"trainers: {bad}")
     return n_launch
 
 
@@ -4281,6 +4674,9 @@ def main() -> int:
 
     # -- the offline entry points: evaluator, expected scores, soak, profile
     launches += tools_phase(smi)
+
+    # -- the quad-table trainers -----------------------------------------------
+    launches += trainers_phase(smi)
 
     # -- the port's measuring layer --------------------------------------------
     launches += bench_phase(smi)

@@ -518,9 +518,12 @@ _DECLARATIONS: tuple[Knob, ...] = (
     _k("LDT_REFERENCE_DIR", "str", None,
        "Root of a CLD2 source snapshot (holding cld2/internal/"
        "unittest_data.h). The offline tools read its golden suite: the "
-       "evaluator's default corpus and the soak's fuzz texts. Unset or "
-       "absent: no golden suite (the soak builds its texts from the "
-       "bench corpus)."),
+       "evaluator's default corpus, the soak's fuzz texts and the quad "
+       "trainers' golden accuracy. Unset or absent: no golden suite (the "
+       "soak builds its texts from the bench corpus; the sweep stops). "
+       "The quad trainer reads its octagram word sources from "
+       "cld2/internal/cld2_generated_*octa*.cc here and raises without "
+       "them."),
 )
 
 KNOBS: dict[str, Knob] = {k.name: k for k in _DECLARATIONS}

@@ -8,9 +8,18 @@
     profile_pack        per-stage cycles of the native packer
     bench_service       docs/sec through the service fronts over HTTP
                         (and the unix-socket lane)
+    cldr_vocab          labeled vocabulary from babel's CLDR data
+    train_quad_tables   the quadgram tables from the snapshot's octagram
+                        words and CLDR phrases (npz under build/)
+    calibrate_quad_tables
+                        win-rate bias calibration and expected scores
+                        for the trained tables over dev documents
+    sweep_quad_tables   the trainer's hyperparameters on the golden
+                        suite
 
 Each keeps the reference package's CLI, output and exit codes. The
 ones that run the engine take --device (default cuda, which raises
 without CUDA; cpu scores with the plain PyTorch version) and never fall
-back to the scalar engine.
+back to the scalar engine. The quad trainers write under build/,
+never over the shipped language_detector_tpu/data/quad_tables.npz.
 """
