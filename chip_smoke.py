@@ -207,6 +207,19 @@ each printing one line:
             the engines' dispatches, card memory does not grow across
             rounds, the calibrated tables answer some dev documents
             differently from the shipped ones; each step's seconds
+  artifact  the table life-cycle on trainers' calibrated tables: the
+            npz pair packed by tools.artifact_tool.pack, --write-manifest
+            and --verify exit 0; the scrub's canary on a one-lane pooled
+            engine on the card takes the baked g/ codes and agrees 1.0,
+            on that pack and on the shipped npz pair packed again, and
+            catches a copy of the pack with one baked code doctored;
+            one asyncio front on the card under 16 clients POST /swap-s
+            onto the pack (200, 0 non-2xx, every response wholly the old
+            or the new tables' codes), then answers as a CPU worker's
+            engine over the pack, and after the swap back the service
+            phase's aio-http payloads byte for byte; launches equal the
+            front engines' own dispatches plus the canaries'; the kernel
+            equals its plain version over the packed tables; under 60 s
   bench     the port's measuring layer (language_detector_tpu_torch
             .bench) in fresh processes: --smoke exits 0 with every gate
             held (lint, telemetry, capture, scrub budgets), the kernel
@@ -237,7 +250,8 @@ the supervisor's and fleet members' read from their /metrics
 ldt_kernel_launches_total, the cold-start processes' first detects,
 the capture drill's and replay's members, the autotune fleet
 members', the CLI's --engine-stats run, the tools phase's, the
-trainers', the bench processes' and the lockdebug phase's) and the
+trainers', the artifact phase's, the bench processes' and the lockdebug
+phase's) and the
 run's verdict,
 {"ok": true, "device": {...}}. Imports torch, numpy and the port only.
 """
@@ -1196,9 +1210,10 @@ class Fronts:
     threaded front (`make_server` plus `wire.UnixFrameServer`). The
     package is the port here; the tests also pass the reference.
     make_service(server module, threaded) builds each front's
-    DetectorService."""
+    DetectorService. threaded=False starts the asyncio front alone."""
 
-    def __init__(self, package: str, make_service, sock_dir: str):
+    def __init__(self, package: str, make_service, sock_dir: str,
+                 threaded: bool = True):
         import asyncio
         import importlib
         import threading
@@ -1209,18 +1224,21 @@ class Fronts:
         os.makedirs(sock_dir, exist_ok=True)
         self.uds = {"aio": os.path.join(sock_dir, "aio.sock"),
                     "threaded": os.path.join(sock_dir, "thr.sock")}
-        self.svc = {"threaded": make_service(server, True),
-                    "aio": make_service(server, False)}
-        self.httpd, self.metricsd, _ = server.make_server(
-            0, 0, service=self.svc["threaded"])
-        self._threads = [threading.Thread(target=s.serve_forever,
-                                          daemon=True)
-                         for s in (self.httpd, self.metricsd)]
-        for t in self._threads:
-            t.start()
-        self.uds_server = wire.UnixFrameServer(self.svc["threaded"],
-                                               self.uds["threaded"])
-        self.uds_server.start()
+        self.threaded = threaded
+        self.svc = {"threaded": make_service(server, True)} if threaded \
+            else {}
+        self.svc["aio"] = make_service(server, False)
+        if threaded:
+            self.httpd, self.metricsd, _ = server.make_server(
+                0, 0, service=self.svc["threaded"])
+            self._threads = [threading.Thread(target=s.serve_forever,
+                                              daemon=True)
+                             for s in (self.httpd, self.metricsd)]
+            for t in self._threads:
+                t.start()
+            self.uds_server = wire.UnixFrameServer(self.svc["threaded"],
+                                                   self.uds["threaded"])
+            self.uds_server.start()
         box: dict = {}
         started = threading.Event()
 
@@ -1249,15 +1267,18 @@ class Fronts:
             else:
                 os.environ["LDT_UNIX_SOCKET"] = old
         self._box = box
-        self.port = {"aio": box["ports"][0],
-                     "threaded": self.httpd.server_address[1]}
-        self.metrics_port = {"aio": box["ports"][1],
-                             "threaded": self.metricsd.server_address[1]}
+        self.port = {"aio": box["ports"][0]}
+        self.metrics_port = {"aio": box["ports"][1]}
+        if threaded:
+            self.port["threaded"] = self.httpd.server_address[1]
+            self.metrics_port["threaded"] = self.metricsd.server_address[1]
 
     def close(self) -> None:
         box = self._box
         box["loop"].call_soon_threadsafe(box["task"].cancel)
         self._aio.join(30)
+        if not self.threaded:
+            return
         self.uds_server.close()
         self.httpd.shutdown()
         self.metricsd.shutdown()
@@ -2257,7 +2278,8 @@ class HttpLoad:
     still got no response. `docs` counts the documents of the 2xx
     answers; with `want` (the reference's (status, id, payload) per
     body), `mismatched` counts the answers whose status or payload
-    differs from it."""
+    differs from it. `on_answer(i, answer, t_sent, t_done)`, when set,
+    sees every answer with its perf_counter times, under the lock."""
 
     def __init__(self, port: int, bodies: list, clients: int,
                  want: list | None = None):
@@ -2274,6 +2296,7 @@ class HttpLoad:
         self.retries = 0
         self.failed = 0
         self.errors: list = []
+        self.on_answer = None
         self._threads: list = []
 
     def _post(self, conn, i: int) -> tuple:
@@ -2313,8 +2336,11 @@ class HttpLoad:
                             self.failed += 1
                             self.errors.append(repr(e))
                         continue
-                dt = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                dt = t1 - t0
                 with self.lock:
+                    if self.on_answer is not None:
+                        self.on_answer(i, got, t0, t1)
                     self.answers[i] = got
                     self.statuses.append(got[0])
                     self.secs.append(dt)
@@ -3877,7 +3903,7 @@ def trainer_outputs(device) -> dict:
     calibrated tables. Returns the arrays, each round's record, what
     calibrate printed, the engines' dispatches, the answers that differ
     between shipped and calibrated tables, and the seconds each step
-    took."""
+    took, and the dev documents' texts."""
     import io
     from language_detector_tpu_torch.registry import registry
     from language_detector_tpu_torch.tables import load_tables
@@ -3917,7 +3943,7 @@ def trainer_outputs(device) -> dict:
             st1["device_dispatches"],
             "differ": sum(a.summary_lang != b.summary_lang
                           for a, b in zip(shipped, calibrated)),
-            "s": s}
+            "texts": texts, "s": s}
 
 
 def trainers_reference() -> dict:
@@ -3931,7 +3957,7 @@ def arrays_equal(a: dict, b: dict) -> bool:
         a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
 
 
-def trainers_phase(smi: str, device="cuda") -> int:
+def trainers_phase(smi: str, device="cuda") -> tuple:
     """Phase `trainers`: the port's quad-table trainers on the card
     (trainer_outputs), beside the same run on the CPU in a spawned
     worker (started first). The trained npz and the calibrated npz
@@ -3942,7 +3968,7 @@ def trainers_phase(smi: str, device="cuda") -> int:
     must not grow from round to round, and the calibrated tables must
     answer some dev documents differently from the shipped ones. Prints
     each step's seconds beside the card; fails over TRAIN_LIMIT_S.
-    Returns the kernel launches."""
+    Returns the kernel launches and the card's trainer_outputs."""
     from language_detector_tpu_torch.ops import kernels
     t0 = time.monotonic()
     ctx = multiprocessing.get_context("spawn")
@@ -3995,7 +4021,335 @@ def trainers_phase(smi: str, device="cuda") -> int:
         bad.append(f"took {phase_s:.1f} s")
     if bad:
         raise AssertionError(f"trainers: {bad}")
-    return n_launch
+    return n_launch, card
+
+
+# -- the table life-cycle: pack, verify, canaries, hot swap -------------------
+
+ARTIFACT_CLIENTS = 16        # HTTP clients of the front through the swap
+ARTIFACT_DEV_BODY = 64       # dev documents a request
+ARTIFACT_LIMIT_S = 60        # the phase's time budget on the card
+
+
+def body_texts(body: bytes) -> list:
+    return [r["text"] for r in json.loads(body)["request"]]
+
+
+def payload_codes(payload: bytes) -> list:
+    return [r.get("iso6391code") for r in json.loads(payload)["response"]]
+
+
+def post_json(url: str, doc: dict, timeout: float = 120) -> tuple:
+    """(status, parsed body) of one JSON POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def artifact_reference(packed: str, mix: list, dev: list) -> dict:
+    """Worker process: the port's engine on the CPU (device="cpu"): the
+    codes of mix and dev over the packed artifact, and of dev over the
+    shipped tables."""
+    torch.set_num_threads(2)
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.tables import (ScoringTables,
+                                                   load_tables)
+    new = NgramBatchEngine(ScoringTables.load_mmap(Path(packed)),
+                           device="cpu")
+    old = NgramBatchEngine(load_tables(), device="cpu")
+    return {"new": new.detect_codes(mix), "new_dev": new.detect_codes(dev),
+            "old_dev": old.detect_codes(dev)}
+
+
+def card_canary(tables, kernels, telemetry, reg, device=None) -> dict:
+    """One scrub of a one-lane pooled engine on the card over `tables`:
+    its result, the canary's expected codes, their source and agreement,
+    the kernel launches and the ldt_integrity_detected_total
+    {kind="canary"} it added."""
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    with env_knobs(LDT_POOL_LANES="1",
+                   LDT_SCRUB_INTERVAL_SEC=str(SCRUB_INTERVAL_S)):
+        eng = NgramBatchEngine(tables, reg, device=device or "cuda")
+    try:
+        mon = eng.integrity
+
+        def detected():
+            return sum(telemetry.REGISTRY.counter_value(
+                "ldt_integrity_detected_total", kind="canary",
+                lane=ln.name) for ln in mon.lanes)
+        d0 = detected()
+        kernels.launches = 0
+        result = [mon.scrub_lane(ln) for ln in mon.lanes]
+        return {"scrub": result, **mon.canary_state,
+                "launches": kernels.launches, "detected": detected() - d0}
+    finally:
+        eng.pool.close()
+
+
+def artifact_phase(out: dict, dev: list, bodies: list, want: dict,
+                   answer: dict, kernels, smi: str, device=None) -> tuple:
+    """Phase `artifact`: the table life-cycle of retrained tables on the
+    card. The shipped cld2_tables.npz and the calibrated quad arrays of
+    phase `trainers` (`out`) are written as an npz pair into a temporary
+    directory and packed there by `artifact_tool.pack` (canaries baked
+    by the scalar engine); `--write-manifest` and `--verify` over that
+    directory must exit 0. A one-lane pooled engine on the card over
+    the packed file scrubs its lane: digest and canary pass, the
+    canary's expected codes are the baked g/ arrays (not re-pinned) and
+    agree 1.0. So must they over the shipped npz pair packed the same
+    way (canaries the shipped tables answer, not mostly unknown); over
+    a copy of the retrained pack whose first baked code is doctored the
+    canary must fail and count one ldt_integrity_detected_total
+    {kind="canary"}. Then one asyncio front on the card over the shipped
+    artifact answers ARTIFACT_CLIENTS clients cycling through the
+    service bodies and the dev documents (`dev`, ARTIFACT_DEV_BODY a
+    request), and `POST /swap` onto the packed file mid-load must
+    answer 200 with every response 2xx and wholly the old tables'
+    codes or wholly the new ones' (the new ones' once sent after the
+    swap returned, the old ones' when answered before it was sent).
+    After it a pass over the same bodies must answer the CPU engine's
+    codes over the packed file (a spawned worker), some documents
+    otherwise than the shipped tables; after `POST /swap` back onto the
+    shipped model.ldta the service bodies must answer `want`'s aio-http
+    payloads byte for byte. Launches must equal the front engines' own
+    dispatches plus one a canary batch, and the kernel must equal its
+    plain version over the packed tables on the dev documents' and the
+    mix's wires; fails over ARTIFACT_LIMIT_S. Returns the kernel
+    launches and the largest |kernel - plain|. device: the engines'
+    device (None: the card; a CPU rehearsal passes "cpu", with
+    torch.cuda.synchronize stubbed, and fails at the launch check)."""
+    import functools
+    import io
+    import shutil
+    import tempfile
+
+    from language_detector_tpu_torch import native, telemetry
+    from language_detector_tpu_torch.models.ngram import NgramBatchEngine
+    from language_detector_tpu_torch.ops.device_tables import DeviceTables
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import DATA_DIR, ScoringTables
+    from language_detector_tpu_torch.tools import artifact_tool
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="ldt-artifact-"))
+    s: dict = {}
+    bad: list = []
+    mix = list(dict.fromkeys(t for b in bodies for t in body_texts(b)))
+    dev_bodies = [json.dumps({"request": [
+        {"text": t} for t in dev[i:i + ARTIFACT_DEV_BODY]]},
+        ensure_ascii=False).encode()
+        for i in range(0, len(dev), ARTIFACT_DEV_BODY)]
+    swap_bodies = bodies + dev_bodies
+    try:
+        t0 = time.monotonic()
+        shutil.copy(DATA_DIR / "cld2_tables.npz", tmp / "cld2_tables.npz")
+        np.savez_compressed(tmp / "quad_tables.npz", **out)
+        s["npz"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        packed = artifact_tool.pack(tmp / "cld2_tables.npz",
+                                    tmp / "quad_tables.npz",
+                                    tmp / "model.ldta")
+        s["pack"] = time.monotonic() - t0
+        ldta_bytes = packed.stat().st_size
+        t0 = time.monotonic()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = {"write_manifest": artifact_tool.main(
+                ["--write-manifest", "--data", str(tmp), "--out",
+                 str(tmp)]),
+                  "verify": artifact_tool.main(["--verify", "--data",
+                                                str(tmp)])}
+        s["verify"] = time.monotonic() - t0
+        verify_out = printed.getvalue().splitlines()
+        if rc != {"write_manifest": 0, "verify": 0} or \
+                verify_out[-1:] != ["artifact verify OK"]:
+            bad.append(f"manifest / verify exit {rc}: {verify_out}")
+
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=ctx) as pool:
+            ref_fut = pool.submit(artifact_reference, str(packed), mix, dev)
+
+            # the scrub's canary on a card lane: over the packed tables,
+            # over the shipped npz pair packed alike (canaries that mean
+            # something) and over the packed tables with the first baked
+            # code doctored (the canary must catch it)
+            t0 = time.monotonic()
+            tables = ScoringTables.load_mmap(packed)
+            baked = list(tables.canary_codes)
+            arrays = artifact_tool.pack_arrays(tmp / "cld2_tables.npz",
+                                               tmp / "quad_tables.npz")
+            codes = arrays["g/codes_u8"].copy()
+            codes[:int(arrays["g/codes_off"][1])] = ord("z")
+            arrays["g/codes_u8"] = codes
+            canary = {name: card_canary(ScoringTables.load_mmap(path),
+                                        kernels, telemetry, reg, device)
+                      for name, path in (
+                          ("retrained", packed),
+                          ("shipped", artifact_tool.pack(
+                              DATA_DIR / "cld2_tables.npz",
+                              DATA_DIR / "quad_tables.npz",
+                              tmp / "shipped.ldta")),
+                          ("doctored", artifact_tool._write_pack(
+                              arrays, tmp / "doctored.ldta")))}
+            del arrays
+            n_canary = sum(c["launches"] for c in canary.values())
+            s["scrub"] = time.monotonic() - t0
+            shipped_baked = list(ScoringTables.load_mmap(
+                DATA_DIR / "model.ldta").canary_codes)
+            want_canary = {
+                "retrained": (["ok"], baked, 1.0, 0),
+                "shipped": (["ok"], shipped_baked, 1.0, 0),
+                "doctored": (["mismatch"], ["z" * len(baked[0])] +
+                             baked[1:], 1 - 1 / len(baked), 1)}
+            for name, (result, expect, agreement, detected) in \
+                    want_canary.items():
+                c = canary[name]
+                if c["scrub"] != result or c["source"] != "artifact" or \
+                        c["expect"] != expect or \
+                        c["agreement"] != agreement or \
+                        c["detected"] != detected or c["launches"] != 1:
+                    bad.append(f"canary scrub over the {name} pack: {c}, "
+                               f"want {result}, {expect}, agreement "
+                               f"{agreement}, {detected} detected")
+            if shipped_baked.count("un") > 0:
+                bad.append(f"the shipped pack's canaries {shipped_baked}")
+
+            # the front: swap onto the packed file under load, and back
+            t0 = time.monotonic()
+            fronts = Fronts("language_detector_tpu_torch",
+                            functools.partial(port_service, device=device),
+                            str(tmp / "sock"), threaded=False)
+            s["front_start"] = time.monotonic() - t0
+            svc = fronts.svc["aio"]
+            swap_url = (f"http://127.0.0.1:{fronts.metrics_port['aio']}"
+                        "/swap")
+            engines = [svc._engine]
+            start = svc._engine.stats_snapshot()
+            records: list = []
+            loads: dict = {}
+            try:
+                kernels.launches = 0
+                load = loads["swap"] = HttpLoad(
+                    fronts.port["aio"], swap_bodies, ARTIFACT_CLIENTS)
+                load.on_answer = lambda i, got, t_in, t_out: \
+                    records.append((i, got[0], got[2], t_in, t_out))
+                load.start()
+                try:
+                    wait_for(lambda: len(records) >= len(swap_bodies),
+                             "artifact: a pass before the swap", 60)
+                    t_swap0 = time.perf_counter()
+                    swapped = post_json(swap_url, {"path": str(packed)})
+                    t_swap1 = time.perf_counter()
+                    engines.append(svc._engine)
+                    n_at = len(records)
+                    wait_for(lambda: len(records) >=
+                             n_at + len(swap_bodies),
+                             "artifact: a pass after the swap", 60)
+                finally:
+                    load.stop()
+                s["swap"] = t_swap1 - t_swap0
+                loads["after"] = HttpLoad(fronts.port["aio"], swap_bodies,
+                                          ARTIFACT_CLIENTS)
+                loads["after"].run()
+                t0 = time.perf_counter()
+                swapped_back = post_json(
+                    swap_url, {"path": str(DATA_DIR / "model.ldta")})
+                s["swap_back"] = time.perf_counter() - t0
+                engines.append(svc._engine)
+                loads["back"] = HttpLoad(fronts.port["aio"], bodies,
+                                         ARTIFACT_CLIENTS)
+                loads["back"].run()
+                n_front = kernels.launches
+            finally:
+                fronts.close()
+            # the kernel against its plain version over the packed
+            # tables, on the wires of the documents the front answered
+            t0 = time.monotonic()
+            on = torch.device(device or "cuda")
+            wires = [native.pack_chunks_native(t, tables, reg).wire
+                     for t in (dev, mix)]
+            err = held_to_plain(kernels, DeviceTables.from_host(
+                tables, reg, on), on, wires)
+            s["parity"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            ref = ref_fut.result()
+            s["cpu_wait"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    dispatches = sum(
+        e.stats_snapshot()["device_dispatches"] -
+        (start if i == 0 else e.carried_stats)["device_dispatches"]
+        for i, e in enumerate(engines))
+    old = {**answer, **dict(zip(dev, ref["old_dev"]))}
+    new = {**dict(zip(mix, ref["new"])), **dict(zip(dev, ref["new_dev"]))}
+    wants = [([old[t] for t in body_texts(b)], [new[t] for t in
+                                               body_texts(b)])
+             for b in swap_bodies]
+    seen = {"old": 0, "new": 0, "either": 0, "neither": 0,
+            "old_after_swap": 0, "new_before_swap": 0}
+    for i, status, payload, t_in, t_out in records:
+        if status not in (200, 203):
+            continue
+        codes = payload_codes(payload)
+        w_old, w_new = wants[i]
+        kind = ("either" if codes == w_old == w_new else
+                "old" if codes == w_old else
+                "new" if codes == w_new else "neither")
+        seen[kind] += 1
+        if kind == "old" and t_in > t_swap1:
+            seen["old_after_swap"] += 1
+        if kind == "new" and t_out < t_swap0:
+            seen["new_before_swap"] += 1
+    after_bad = [i for i, a in enumerate(loads["after"].answers)
+                 if a is None or a[0] not in (200, 203) or
+                 payload_codes(a[2]) != wants[i][1]]
+    back_bad = loads["back"].payload_mismatches(want["aio-http"])
+    changed = {"dev": sum(old[t] != new[t] for t in dev),
+               "mix": sum(old[t] != new[t] for t in mix)}
+    phase_s = time.monotonic() - t_phase
+    non_2xx = {k: ld.non_2xx() for k, ld in loads.items()}
+    failed = {k: ld.failed for k, ld in loads.items()}
+    phase("artifact", card=smi, ldta_bytes=ldta_bytes, baked_codes=baked,
+          canary=canary, verify=verify_out,
+          swap=[swapped[0], swapped_back[0]], responses=len(records),
+          seen=seen, changed=changed, after_mismatched=len(after_bad),
+          back_mismatched=len(back_bad), non_2xx=non_2xx, failed=failed,
+          launches=n_front + n_canary, canary_launches=n_canary,
+          front_launches=n_front, front_dispatches=dispatches,
+          engines=len(engines), max_abs_err=err,
+          parity_wires=[wire_shape_of(w) for w in wires], s=s,
+          phase_s=phase_s)
+    if swapped[0] != 200 or not swapped[1].get("swapped") or \
+            swapped_back[0] != 200 or not swapped_back[1].get("swapped"):
+        bad.append(f"POST /swap answered {swapped}, back {swapped_back}")
+    if any(non_2xx.values()) or any(failed.values()):
+        bad.append(f"non-2xx {non_2xx}, failed {failed}")
+    if seen["neither"] or seen["old_after_swap"] or \
+            seen["new_before_swap"] or not seen["new"] or not seen["old"]:
+        bad.append(f"responses through the swap: {seen}")
+    if after_bad or not changed["dev"]:
+        bad.append(f"after the swap {len(after_bad)} answers differ from "
+                   f"the CPU's over the packed file (first "
+                   f"{after_bad[:5]}); documents changed {changed}")
+    if back_bad:
+        bad.append(f"after the swap back {len(back_bad)} answers differ "
+                   f"from the service phase's, first {back_bad[:5]}")
+    if not (0 < n_front == dispatches):
+        bad.append(f"{n_front} front launches over {dispatches} "
+                   f"dispatches")
+    if phase_s > ARTIFACT_LIMIT_S:
+        bad.append(f"took {phase_s:.1f} s")
+    if bad:
+        raise AssertionError(f"artifact: {bad}")
+    return n_front + n_canary, err
 
 
 # -- the port's measuring layer: bench --smoke, --kernel, the service bench ----
@@ -4676,7 +5030,16 @@ def main() -> int:
     launches += tools_phase(smi)
 
     # -- the quad-table trainers -----------------------------------------------
-    launches += trainers_phase(smi)
+    n_train, trained = trainers_phase(smi)
+    launches += n_train
+
+    # -- the table life-cycle: pack, verify, canaries, hot swap -------------
+    n_artifact, artifact_err = artifact_phase(
+        trained["out"], trained["texts"], bodies, service_want, answer,
+        kernels, smi)
+    launches += n_artifact
+    max_err = max(max_err, artifact_err)
+    del trained
 
     # -- the port's measuring layer --------------------------------------------
     launches += bench_phase(smi)

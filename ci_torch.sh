@@ -49,9 +49,11 @@ EOF
 # reference is the JAX package), so it is left out.
 
 echo "== artifact verify =="
-# the single-file table artifact the port serves from: structure and
-# every blob digest (artifact.verify_artifact), the mmap load, and the
-# manifest against the shipped data (the reference's cases run on it)
+# the port's artifact tool, ci.sh's tools/artifact_tool.py --verify:
+# manifest drift, table structure, a stale or extra model.ldta array
+# and its digest footer, over the shipped data. Then the mmap load the
+# fronts make, and the reference's cases run on the port's tool
+python3 -m language_detector_tpu_torch.tools.artifact_tool --verify
 python3 - <<'EOF'
 from language_detector_tpu_torch.artifact import verify_artifact
 from language_detector_tpu_torch.tables import DATA_DIR, ScoringTables
@@ -60,7 +62,7 @@ tables = ScoringTables.load_mmap(DATA_DIR / "model.ldta")
 assert tables.quadgram.buckets.size > 0, "artifact without quad tables"
 print("artifact:", digest)
 EOF
-port_tests tests/test_torch_ref_artifact_verify.py
+port_tests tests/test_torch_ref_artifact_verify.py tests/test_torch_tools_artifact.py
 
 echo "== static analysis =="
 # the reference's analyzers over the port (tools/lint_torch); mypy is

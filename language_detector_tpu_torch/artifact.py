@@ -5,8 +5,10 @@ The TPU rebuild of the reference's dynamic-data format
 one little-endian file = fixed header + per-array descriptors + 64-byte
 aligned data blobs, reconstructed at load time as zero-copy views over a
 single mmap — no parsing, no decompression, no per-array allocation.
-The npz artifacts remain the interchange format (tools/artifact_tool.py
-converts with --pack); this is the serving format.
+The npz artifacts remain the interchange format (`python -m
+language_detector_tpu_torch.tools.artifact_tool --pack` converts them,
+and `--verify` checks a pack against its npz pair); this is the serving
+format.
 
 Layout (all little-endian):
   0   u32  magic "LDTA" (0x4154444C)
@@ -51,6 +53,10 @@ FLAG_DIGESTS = 0x1
 _HDR = struct.Struct("<IIII QQ")
 _DESC = struct.Struct("<48s8sI 4Q QQ")
 _FOOT = struct.Struct("<II")
+# the remedy every load failure names: re-pack the npz pair with the
+# port's tools/artifact_tool.py, run as a module
+REPACK = ("artifact_tool.py --pack (python -m "
+          "language_detector_tpu_torch.tools.artifact_tool --pack)")
 
 # pinned artifact geometry: a drive-by field edit must fail at import,
 # not invalidate every packed model.ldta in the field
@@ -139,7 +145,7 @@ def load_artifact(path: str | Path) -> dict:
         raise ArtifactError(
             f"{path}: cannot open artifact ({e.strerror or e}) — check "
             "the path/permissions or re-pack with "
-            "tools/artifact_tool.py --pack") from e
+            f"{REPACK}") from e
     with f:
         # size-vs-header validation BEFORE the mapping exists: a
         # truncated or still-being-written file must produce a typed,
@@ -150,7 +156,7 @@ def load_artifact(path: str | Path) -> dict:
             raise ArtifactError(
                 f"{path}: {size}-byte file is shorter than the header "
                 f"({_HDR.size} bytes; empty or half-written artifact) "
-                "— re-pack with tools/artifact_tool.py --pack")
+                f"— re-pack with {REPACK}")
         pre_magic, _pv, _pn, _pr, _phb, pre_total = \
             _HDR.unpack(f.read(_HDR.size))
         if pre_magic == MAGIC and pre_total != size:
@@ -158,38 +164,36 @@ def load_artifact(path: str | Path) -> dict:
                 f"{path}: file is {size} bytes but the header records "
                 f"{pre_total} (truncated or corrupt — half-written "
                 "pack: packer died or disk filled mid-write) — restore "
-                "it from source or re-pack with tools/artifact_tool.py "
-                "--pack")
+                f"it from source or re-pack with {REPACK}")
         try:
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         except (OSError, ValueError) as e:
             raise ArtifactError(
                 f"{path}: cannot mmap artifact ({e}) — the file must "
                 "be a regular, readable, non-empty LDTA pack; re-pack "
-                "with tools/artifact_tool.py --pack") from e
+                f"with {REPACK}") from e
     try:
         if len(mm) < _HDR.size:
             raise ArtifactError(
                 f"{path}: not an LDTA artifact (file shorter than the "
-                "header) — re-pack it with tools/artifact_tool.py --pack")
+                f"header) — re-pack it with {REPACK}")
         magic, version, n, flags, header_bytes, total = \
             _HDR.unpack_from(mm, 0)
         if magic != MAGIC:
             raise ArtifactError(
                 f"{path}: bad magic {magic:#x} (want {MAGIC:#x} 'LDTA') "
                 "— this is not a packed artifact; re-pack the npz with "
-                "tools/artifact_tool.py --pack")
+                f"{REPACK}")
         if version != VERSION:
             raise ArtifactError(
                 f"{path}: format version {version}, this build reads "
                 f"version {VERSION} — re-pack with a matching "
-                "tools/artifact_tool.py --pack")
+                f"{REPACK}")
         if total != len(mm):
             raise ArtifactError(
                 f"{path}: file is {len(mm)} bytes but the header "
                 f"records {total} (truncated or corrupt) — restore it "
-                "from source or re-pack with tools/artifact_tool.py "
-                "--pack")
+                f"from source or re-pack with {REPACK}")
         # a corrupted n_arrays/header_bytes must fail the ArtifactError
         # contract, not crash struct.unpack past the mapping
         if header_bytes != _HDR.size + n * _DESC.size or \
@@ -197,7 +201,7 @@ def load_artifact(path: str | Path) -> dict:
             raise ArtifactError(
                 f"{path}: header_bytes {header_bytes} inconsistent "
                 f"with {n} descriptors (corrupt header) — re-pack with "
-                "tools/artifact_tool.py --pack")
+                f"{REPACK}")
         data_start = -(-header_bytes // ALIGN) * ALIGN
         crcs = None
         if flags & FLAG_DIGESTS:
@@ -206,14 +210,14 @@ def load_artifact(path: str | Path) -> dict:
                 raise ArtifactError(
                     f"{path}: digest footer overlaps the data region "
                     "(corrupt header) — re-pack with "
-                    "tools/artifact_tool.py --pack")
+                    f"{REPACK}")
             fmagic, fn = _FOOT.unpack_from(mm, foot_off)
             if fmagic != FOOT_MAGIC or fn != n:
                 raise ArtifactIntegrityError(
                     f"{path}: digest footer corrupt (magic {fmagic:#x}"
                     f", {fn} entries for {n} arrays) — restore the "
                     "file from source or re-pack with "
-                    "tools/artifact_tool.py --pack")
+                    f"{REPACK}")
             crcs = struct.unpack_from(f"<{n}I", mm,
                                       foot_off + _FOOT.size)
         out: dict = {}
@@ -228,15 +232,14 @@ def load_artifact(path: str | Path) -> dict:
                 raise ArtifactError(
                     f"{path}: array {name!r} has an unreadable dtype "
                     f"({e}) — corrupt descriptor; re-pack with "
-                    "tools/artifact_tool.py --pack") from None
+                    f"{REPACK}") from None
             shape = (s0, s1, s2, s3)[:ndim]
             # offsets must land in the data region: a corrupt descriptor
             # must not alias array views over the header/descriptor table
             if ndim > 4 or off < data_start or off + nb > total:
                 raise ArtifactError(
                     f"{path}: array {name!r} descriptor out of bounds "
-                    "(corrupt) — re-pack with tools/artifact_tool.py "
-                    "--pack")
+                    f"(corrupt) — re-pack with {REPACK}")
             count = 1
             for s in shape:
                 count *= s
@@ -245,14 +248,14 @@ def load_artifact(path: str | Path) -> dict:
                     f"{path}: array {name!r} records {nb} bytes but "
                     f"shape {shape} x itemsize {dtype.itemsize} "
                     "disagrees (corrupt descriptor) — re-pack with "
-                    "tools/artifact_tool.py --pack")
+                    f"{REPACK}")
             if crcs is not None and \
                     zlib.crc32(buf[off:off + nb]) != crcs[i]:
                 raise ArtifactIntegrityError(
                     f"{path}: array {name!r} fails its digest "
                     "(bit rot, a torn copy, or tampering) — restore "
                     "the file from source or re-pack with "
-                    "tools/artifact_tool.py --pack")
+                    f"{REPACK}")
             a = np.frombuffer(buf[off:off + nb], dtype=dtype)
             out[name] = a.reshape(shape)
     except BaseException:

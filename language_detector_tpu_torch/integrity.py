@@ -18,7 +18,8 @@ This module makes corruption detected, attributed, and healed:
                      recorded at upload (ops/device_tables.fingerprint).
   golden canaries    each scrub also scores a pinned canary pack whose
                      expected codes are baked into the artifact at pack
-                     time (tools/artifact_tool.py, the g/ arrays) and
+                     time (`python -m language_detector_tpu_torch.
+                     tools.artifact_tool --pack`, the g/ arrays) and
                      scored through the lane's own scorer (the
                      fused-tote kernel on the card) — catching compute
                      faults a table digest can't see.
@@ -47,8 +48,9 @@ from .ops.device_tables import PLANES
 
 # Pinned golden-query canary pack: 8 short, unambiguous, multi-script
 # docs. Baked into the artifact with their expected codes at pack time
-# (tools/artifact_tool.py); the pack must stay deterministic on the
-# device path (no packer fallback, no gate retry).
+# (language_detector_tpu_torch/tools/artifact_tool.py --pack); the pack
+# must stay deterministic on the device path (no packer fallback, no
+# gate retry).
 CANARY_DOCS = (
     "This is a simple English sentence about the weather today, "
     "which should be perfectly easy to detect.",
@@ -119,6 +121,10 @@ class IntegrityMonitor:
         self._clock = clock or time.monotonic
         self._lock = make_lock("integrity.scrub")
         self._last_scrub = self._clock()
+        # build_from_env's canary: its expected codes, where they came
+        # from ("artifact": the g/ arrays baked at pack time, "scalar":
+        # pinned at first use) and the last check's agreement
+        self.canary_state: dict | None = None
         self.stats = {"scrubs": 0, "detected": 0, "healed": 0,
                       "last_scrub_ms": 0.0}
 
@@ -271,7 +277,7 @@ def build_from_env(engine) -> IntegrityMonitor | None:
         # g/ canary arrays, tables.load_mmap) when present; else
         # pinned at first use from the engine's own trusted-at-init
         # tables via the scalar oracle
-        state = {"expect": None}
+        state = {"expect": None, "source": None, "agreement": None}
 
         def expected_codes():
             if state["expect"] is None:
@@ -281,6 +287,7 @@ def build_from_env(engine) -> IntegrityMonitor | None:
                 if baked is not None and baked_docs is not None \
                         and list(baked_docs) == docs:
                     state["expect"] = list(baked)
+                    state["source"] = "artifact"
                 else:
                     from .engine_scalar import detect_scalar
                     state["expect"] = [
@@ -288,6 +295,7 @@ def build_from_env(engine) -> IntegrityMonitor | None:
                             t, engine.tables, engine.reg,
                             engine.flags).summary_lang)
                         for t in docs]
+                    state["source"] = "scalar"
             return state["expect"]
 
         def canary_fn(lane):
@@ -306,6 +314,8 @@ def build_from_env(engine) -> IntegrityMonitor | None:
             got = [engine.reg.code(int(ep[b][0]))
                    for b in range(len(docs))]
             want = expected_codes()
+            state["agreement"] = sum(
+                g == w for g, w in zip(got, want)) / len(docs)
             if got[:n_core] != want[:n_core]:
                 return False
             ext_got, ext_want = got[n_core:], want[n_core:]
@@ -317,10 +327,13 @@ def build_from_env(engine) -> IntegrityMonitor | None:
 
     expected = {ln.idx: fingerprint(ln.dt)
                 for ln in engine.pool.lanes if ln.dt is not None}
-    return IntegrityMonitor(
+    mon = IntegrityMonitor(
         [ln for ln in engine.pool.lanes if ln.dt is not None],
         expected, digest_fn, reupload_fn, canary_fn=canary_fn,
         interval_sec=interval)
+    if canary_fn is not None:
+        mon.canary_state = state
+    return mon
 
 
 def bench_scrub_overhead(engine) -> dict | None:

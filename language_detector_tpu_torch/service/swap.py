@@ -61,6 +61,9 @@ def _swap_engine(svc, tables):
     with new_eng._stats_lock:
         for k, v in snap.items():
             new_eng.stats[k] = new_eng.stats.get(k, 0) + v
+    # what was carried over: stats less this is the engine's own work
+    # (flushes the old engine finishes after the copy stay its own)
+    new_eng.carried_stats = snap
     svc._engine = new_eng
 
 

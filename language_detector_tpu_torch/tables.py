@@ -113,8 +113,9 @@ class ScoringTables:
         return cls._build(z, qz, quad_warning=(
             "quad_tables.npz not found: quadgram scoring disabled, "
             "so most Latin/Cyrillic/Greek-script languages will "
-            "detect as unknown. Build it with "
-            "tools/train_quad_tables.py.") if discovery_miss else None)
+            "detect as unknown. Build it with `python -m "
+            "language_detector_tpu_torch.tools.train_quad_tables`.")
+            if discovery_miss else None)
 
     @classmethod
     def load_mmap(cls, path: Path) -> "ScoringTables":
@@ -130,15 +131,17 @@ class ScoringTables:
         st = cls._build(z, qz or None, quad_warning=None if qz else (
             f"{path} was packed without quad tables: quadgram scoring "
             "disabled, so most Latin/Cyrillic/Greek-script languages "
-            "will detect as unknown. Re-pack with tools/artifact_tool.py "
-            "--pack after training quad_tables.npz."))
+            "will detect as unknown. Re-pack with `python -m "
+            "language_detector_tpu_torch.tools.artifact_tool --pack "
+            "--data DIR --out DIR`, DIR holding cld2_tables.npz and the "
+            "trained quad_tables.npz."))
         # integrity identity: the artifact's digest-footer fingerprint
         # (None for a legacy footerless pack) names the serving
         # generation — result-cache epochs and /debug/vars use it
         from .artifact import artifact_digest
         st.artifact_digest = artifact_digest(path)
         # golden-canary pack baked at artifact build time (the g/
-        # arrays, tools/artifact_tool.py --pack): pinned docs and their
+        # arrays, written by artifact_tool --pack): pinned docs and their
         # expected codes for integrity.py's per-lane canary check
         gd, go = arrays.get("g/docs_u8"), arrays.get("g/docs_off")
         cd, co = arrays.get("g/codes_u8"), arrays.get("g/codes_off")
@@ -207,13 +210,17 @@ _tables_cache: dict = {}
 def load_tables(path: Path = _DATA) -> ScoringTables:
     """Default table loading: the single-file mmap artifact
     (data/model.ldta, zero-copy) when present next to the npz bundle,
-    else the npz pair. tools/artifact_tool.py --pack builds the
-    artifact; both sources are bit-identical (test_artifact_mmap).
+    else the npz pair; both sources are bit-identical
+    (test_artifact_mmap). The port never rewrites the shipped pack:
+    `python -m language_detector_tpu_torch.tools.artifact_tool --pack
+    --data DIR --out DIR` packs a tree of its own into DIR/model.ldta,
+    which ScoringTables.load_mmap loads and a front's POST /swap
+    serves.
 
-    The chosen source is logged once, and a stale artifact (npz bundle
-    newer than the packed file — retrained tables without re-running
-    artifact_tool --pack) logs a warning at load time rather than
-    waiting for ci.sh --verify to notice the drift."""
+    The chosen source is logged once, and a stale shipped artifact (npz
+    bundle newer than the packed file) logs a warning at load time
+    rather than waiting for the artifact verify of ci_torch.sh to
+    notice the drift."""
     import logging
     key = str(path)
     if key not in _tables_cache:
@@ -237,10 +244,13 @@ def load_tables(path: Path = _DATA) -> ScoringTables:
                 ldta_mtime = None
             if ldta_mtime is not None and npz_mtime > ldta_mtime:
                 log.warning(
-                    "serving tables from %s but the npz bundle is newer "
-                    "— retrained tables without artifact_tool --pack? "
-                    "(run tools/artifact_tool.py --pack, or ci.sh "
-                    "--verify to check content drift)", ldta)
+                    "serving tables from %s but the npz bundle beside "
+                    "it is newer; the port never rewrites this shipped "
+                    "pack (check content drift with `python -m "
+                    "language_detector_tpu_torch.tools.artifact_tool "
+                    "--verify` or ci_torch.sh; serve retrained tables "
+                    "from a pack of their own: `... artifact_tool --pack "
+                    "--data DIR --out DIR`)", ldta)
             else:
                 log.info("loading tables from %s (mmap artifact)", ldta)
             _tables_cache[key] = ScoringTables.load_mmap(ldta)

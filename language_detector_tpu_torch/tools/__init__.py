@@ -16,10 +16,15 @@
                         for the trained tables over dev documents
     sweep_quad_tables   the trainer's hyperparameters on the golden
                         suite
+    artifact_tool       dump, verify, and pack the npz pair into the
+                        served model.ldta with its golden canaries
+    gen_service_codes   the service's code -> language-name map
+    make_eval_corpus    a labeled TSV of golden-suite windows
 
 Each keeps the reference package's CLI, output and exit codes. The
 ones that run the engine take --device (default cuda, which raises
 without CUDA; cpu scores with the plain PyTorch version) and never fall
-back to the scalar engine. The quad trainers write under build/,
-never over the shipped language_detector_tpu/data/quad_tables.npz.
+back to the scalar engine. The quad trainers and the table tools
+write under build/, never into the shipped language_detector_tpu/data/
+or service/cld_codes.json.
 """
