@@ -772,6 +772,8 @@ HINT_ENCODINGS = ("CHINESE_GB", "JAPANESE_EUC_JP", "KOREAN_EUC_KR",
                   "RUSSIAN_CP1251", "MSFT_CP1252")
 SPLIT_BUDGET = 64            # the small-budget span engine's sub-doc slots
 SPAN_SHORT_DOCS = 1024       # shorter documents on the span path
+ACC_SHORT_DOCS = 1024        # short, non-CJK documents on the chunk,
+                             # hinted and HTML paths
 
 
 def hint_groups(groups: dict, answer: dict, labels: list, reg, seed: int,
@@ -854,15 +856,31 @@ def span_subset(docs: list, seed: int) -> list:
     return [d for i, d in enumerate(docs) if len(d) >= 10_000 or i in keep]
 
 
+def accuracy_subset(docs: list, seed: int) -> list:
+    """The chunk, hinted and HTML paths' documents: every 10-50 KB
+    concatenation, every CJK run and a seeded ACC_SHORT_DOCS of the
+    rest, in mix order. Those paths spend most of their time resolving
+    documents in the scalar engine; the cut keeps every long document
+    and CJK run and thins only the short ones."""
+    rest = [i for i, d in enumerate(docs)
+            if len(d) < 10_000 and not cjk_run(d)]
+    keep = set(random.Random(seed).sample(rest, ACC_SHORT_DOCS))
+    return [d for i, d in enumerate(docs)
+            if len(d) >= 10_000 or cjk_run(d) or i in keep]
+
+
 def accuracy_paths(docs: list, span_docs: list, long_docs: list,
                    hgroups: list, html: list, CLDHints) -> dict:
     """name -> (run, n_docs): run(engines) drives one path through the
     engines' public entry points (engines: "plain", "priors" with hint
     priors on, "small" with the SPLIT_BUDGET span budget) and returns its
-    answer_rows in a fixed order."""
+    answer_rows in a fixed order. The span path is two: the span
+    documents, and the long ones again at the small budget."""
     def spans(E):
-        return (answer_rows(E["plain"].detect_spans(span_docs)) +
-                answer_rows(E["small"].detect_spans(long_docs)))
+        return answer_rows(E["plain"].detect_spans(span_docs))
+
+    def spans_small(E):
+        return answer_rows(E["small"].detect_spans(long_docs))
 
     def chunks(E):
         return answer_rows(E["plain"].detect_batch(docs, return_chunks=True))
@@ -881,7 +899,8 @@ def accuracy_paths(docs: list, span_docs: list, long_docs: list,
                                                    is_plain_text=False))
 
     n_hinted = sum(len(g) for _, g in hgroups)
-    return {"spans": (spans, len(span_docs) + len(long_docs)),
+    return {"spans": (spans, len(span_docs)),
+            "spans_small": (spans_small, len(long_docs)),
             "chunks": (chunks, len(docs)),
             "hinted_priors_off": (hinted("plain"), n_hinted),
             "hinted_priors_on": (hinted("priors"), n_hinted),
@@ -918,18 +937,14 @@ def scalar_oracles(docs: list, span_docs: list, long_docs: list,
         detect_scalar, detect_scalar_spans)
     hinted = [(kw, d) for kw, g in hgroups for d in g]
 
-    def spans(i):
-        if i < len(span_docs):
-            return detect_scalar_spans(span_docs[i], tables, reg, 0,
-                                       budget)
-        return detect_scalar_spans(long_docs[i - len(span_docs)], tables,
-                                   reg, 0, SPLIT_BUDGET)
-
     def hint(i):
         kw, d = hinted[i]
         return detect_scalar(d, tables, reg, hints=CLDHints(**kw))
 
-    return {"spans": (spans, span_docs + long_docs),
+    return {"spans": (lambda i: detect_scalar_spans(
+                span_docs[i], tables, reg, 0, budget), span_docs),
+            "spans_small": (lambda i: detect_scalar_spans(
+                long_docs[i], tables, reg, 0, SPLIT_BUDGET), long_docs),
             "chunks": (lambda i: detect_scalar(docs[i], tables, reg,
                                                want_chunks=True), docs),
             "hinted_priors_off": (hint, [d for _, d in hinted]),
@@ -963,17 +978,15 @@ def engine_counts(engines) -> dict:
         "device_dispatches", "fallback_docs", "scalar_recursion_docs")}
 
 
-def scalar_samples(paths: dict, n_span_docs: int, seed: int) -> dict:
+def scalar_samples(paths: dict, seed: int) -> dict:
     """name -> the seeded sample of items held against the scalar engine
-    (256 a path, and 4 of the small-budget span items besides)."""
+    (256 a path, 4 of the small-budget span path's)."""
     out = {}
     for name, (_, n_items) in paths.items():
         if name == "hinted_priors_on":   # priors exist only on the device
             continue
-        rng = random.Random(seed)
-        out[name] = rng.sample(range(n_items), 256)
-        if name == "spans":
-            out[name] += rng.sample(range(n_span_docs, n_items), 4)
+        out[name] = random.Random(seed).sample(
+            range(n_items), 4 if name == "spans_small" else 256)
     return out
 
 
@@ -989,6 +1002,35 @@ def cpu_reference(name: str, inputs: tuple) -> tuple:
     with DispatchRecorder(engines.values()) as rec:
         answers = run(engines)
     return answers, rec.sorted_records()
+
+
+def card_path(name: str, inputs: tuple) -> dict:
+    """Worker process: one accuracy path once on the card (engine_set on
+    cuda), traced (device_busy) and split on the host clock (host_split):
+    its answers, the dispatches it made (DispatchRecorder records, in
+    launch order), the engines' counters, the trace, the split, and the
+    kernel launches counted from 0 just before the run."""
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    from language_detector_tpu_torch.hints import CLDHints
+    from language_detector_tpu_torch.models import ngram
+    from language_detector_tpu_torch.ops import kernels
+    from language_detector_tpu_torch.registry import registry as reg
+    from language_detector_tpu_torch.tables import load_tables
+    run, _ = accuracy_paths(*inputs, CLDHints)[name]
+    engines = engine_set(load_tables(), reg, "cuda")
+    before = engine_counts(engines.values())
+    box: dict = {}
+    kernels.launches = 0
+    with host_split(ngram) as split, \
+            DispatchRecorder(engines.values()) as rec:
+        tr = device_busy(lambda: box.setdefault("got", run(engines)))
+    n_launch = kernels.launches
+    after = engine_counts(engines.values())
+    return {"got": box["got"], "n_launch": n_launch,
+            "records": rec.records,
+            "counts": {k: after[k] - before[k] for k in after}, "tr": tr,
+            "split": {**split, "other_s": tr["wall_s"] - sum(split.values())}}
 
 
 def scalar_reference(samples: dict, inputs: tuple) -> dict:
@@ -1024,6 +1066,12 @@ def wire_digest(wire: dict) -> str:
     return h.hexdigest()
 
 
+def sort_records(records: list) -> list:
+    """Dispatch records in wire-digest order, for comparing two runs."""
+    return sorted(records, key=lambda r: (wire_digest(r["wire"]),
+                                          r["full_out"]))
+
+
 class DispatchRecorder:
     """Records every dispatch the engines make inside the block: a copy
     of the wire (numpy, as packed: its staging lease is reused once the
@@ -1049,8 +1097,7 @@ class DispatchRecorder:
         return self
 
     def sorted_records(self) -> list:
-        return sorted(self.records, key=lambda r: (wire_digest(r["wire"]),
-                                                   r["full_out"]))
+        return sort_records(self.records)
 
     def __exit__(self, *exc):
         for eng in self.engines:
@@ -2748,18 +2795,22 @@ class Fleet:
     default, the asyncio front on the card) on one SO_REUSEPORT port,
     each with its own ring directory under LDT_SHM_DIR and recorder
     under LDT_FLIGHTREC_DIR, sharing one result-cache tier file
-    (LDT_RESULT_CACHE_SHM_MB)."""
+    (LDT_RESULT_CACHE_SHM_MB). The fleet picks its listen and status
+    ports itself (LISTEN_PORT=0, LDT_FLEET_STATUS_PORT=-1) and holds
+    them; they are read from its `fleet: starting` log line. A port
+    probed free here and bound later could be handed to another fleet
+    in between, and SO_REUSEPORT would let the two share it."""
 
     def __init__(self, n: int, tmp: str, module: str | None = None,
                  **env):
+        import tempfile
         self.n = n
-        self.port, self.sport = free_port(), free_port()
-        d = os.path.join(tmp, f"fleet{n}-{self.port}")
-        os.makedirs(d)
+        os.makedirs(tmp, exist_ok=True)
+        d = self.dir = tempfile.mkdtemp(prefix=f"fleet{n}-", dir=tmp)
         self.log_path = os.path.join(d, "fleet.log")
         self.proc = start_supervisor(proc_env(**{
-            "LISTEN_PORT": self.port, "PROMETHEUS_PORT": 0,
-            "LDT_FLEET_WORKERS": n, "LDT_FLEET_STATUS_PORT": self.sport,
+            "LISTEN_PORT": 0, "PROMETHEUS_PORT": 0,
+            "LDT_FLEET_WORKERS": n, "LDT_FLEET_STATUS_PORT": -1,
             "LDT_SHM_DIR": os.path.join(d, "shm"),
             "LDT_FLIGHTREC_DIR": os.path.join(d, "fr"),
             "LDT_RESULT_CACHE_MB": 64, "LDT_RESULT_CACHE_SHM_MB": 64,
@@ -2767,6 +2818,31 @@ class Fleet:
             "LDT_CRASH_BACKOFF_BASE_SEC": 0.2,
             "LDT_CRASH_BACKOFF_MAX_SEC": 1.0, **env}),
             self.log_path, module)
+        self._start: dict | None = None
+
+    def _started(self) -> dict | None:
+        """The fleet's `fleet: starting` log line, once written."""
+        for line in self.log().splitlines():
+            if line.startswith("{") and '"fleet: starting"' in line:
+                with contextlib.suppress(ValueError):
+                    return json.loads(line)
+        return None
+
+    def _ports(self) -> dict:
+        if self._start is None:
+            self._start = wait_for(self._started, "the fleet's ports",
+                                   PROC_START_S, self.proc)
+        return self._start
+
+    @property
+    def port(self) -> int:
+        """The members' listen port (waits for the fleet to name it)."""
+        return self._ports()["listen_port"]
+
+    @property
+    def sport(self) -> int:
+        """The fleet's status port (/fleetz)."""
+        return self._ports()["status_port"]
 
     def snap(self) -> dict | None:
         return fleetz(self.sport)
@@ -4859,35 +4935,78 @@ def main() -> int:
 
     # -- accuracy paths: hinted, HTML, chunk vectors, spans ------------------
     from language_detector_tpu_torch.hints import CLDHints
-    from language_detector_tpu_torch.models import ngram
     labels = sorted({ln.split("\t", 1)[0] for ln in
                      open(DATA_DIR / "eval_corpus.tsv", encoding="utf-8")})
     answer = dict(flat)
     long_docs = [d for d in docs if len(d) >= 10_000]
     span_docs = span_subset(docs, args.seed)
-    inputs = (docs, span_docs, long_docs,
-              hint_groups(groups, answer, labels, reg, args.seed),
-              html_pages(docs, answer, labels, args.seed))
+    acc_docs = accuracy_subset(docs, args.seed)
+    acc_set = set(acc_docs)
+    acc_groups = {k: [d for d in g if d in acc_set]
+                  for k, g in groups.items()}
+    inputs = (acc_docs, span_docs, long_docs,
+              hint_groups({k: g for k, g in acc_groups.items() if g},
+                          answer, labels, reg, args.seed),
+              html_pages(acc_docs, answer, labels, args.seed))
     paths = accuracy_paths(*inputs, CLDHints)
-    samples = scalar_samples(paths, len(span_docs), args.seed)
-    # the CPU run of every path and the scalar engine's answers for the
-    # samples, in worker processes: host work that no timing reads
-    # (and the scheduler phase's CPU answers)
+    samples = scalar_samples(paths, args.seed)
+    # every path once on the card (card_path) and once on the CPU
+    # (cpu_reference), the scalar engine's answers for the samples and the
+    # scheduler phase's CPU answers, all in worker processes at once: the
+    # paths resolve exception documents in the scalar engine on the host,
+    # which is most of their time (the card paths' docs/s is read under
+    # the other workers' load)
     sched_inputs = scheduler_inputs(docs, args.seed)
     t0 = time.monotonic()
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(len(paths) + 3,
-                                                mp_context=ctx) as pool:
-        cpu_futs = {name: pool.submit(cpu_reference, name, inputs)
-                    for name in paths}
-        scalar_fut = pool.submit(scalar_reference, samples, inputs)
-        sched_fut = pool.submit(scheduler_reference, sched_inputs)
-        eval_fut = pool.submit(eval_reference)
+    worker_s: dict = {}
+
+    def timed(name: str, fut):
+        fut.add_done_callback(lambda _: worker_s.setdefault(
+            name, time.monotonic() - t0))
+        return fut
+
+    with concurrent.futures.ProcessPoolExecutor(
+            2 * len(paths) + len(samples) + len(sched_inputs) + 1,
+            mp_context=ctx) as pool:
+        card_futs = {name: timed(f"card:{name}", pool.submit(
+            card_path, name, inputs)) for name in paths}
+        cpu_futs = {name: timed(f"cpu:{name}", pool.submit(
+            cpu_reference, name, inputs)) for name in paths}
+        scalar_futs = {name: timed(f"scalar:{name}", pool.submit(
+            scalar_reference, {name: items}, inputs))
+            for name, items in samples.items()}
+        # one worker an input, each full-mix pass on its own core
+        sched_futs = {name: timed(f"scheduler:{name}", pool.submit(
+            scheduler_reference, {name: d}))
+            for name, d in sched_inputs.items()}
+        eval_fut = timed("eval", pool.submit(eval_reference))
+        card = {name: f.result() for name, f in card_futs.items()}
+        card_s = time.monotonic() - t0
         cpu_ref = {name: f.result() for name, f in cpu_futs.items()}
-        scalar_ref = scalar_fut.result()
-        sched_ref = sched_fut.result()
+        scalar_ref = {name: f.result()[name]
+                      for name, f in scalar_futs.items()}
+        sched_ref = {name: f.result()[name]
+                     for name, f in sched_futs.items()}
         eval_ref = eval_fut.result()
     cpu_s = time.monotonic() - t0
+    for name, c in card.items():
+        recs, tr, n_launch = c["records"], c["tr"], c["n_launch"]
+        dispatches = c["counts"].pop("device_dispatches")
+        launches += n_launch
+        if not (n_launch == len(recs) == dispatches ==
+                tr["fused_tote_traced"] > 0) or tr["other_kernels"]:
+            raise AssertionError(
+                f"{name}: {n_launch} launches, {len(recs)} recorded and "
+                f"{dispatches} counted dispatches, "
+                f"{tr['fused_tote_traced']} traced fused_tote launches and "
+                f"{tr['other_kernels']} other kernels "
+                f"{tr['other_kernel_names']}; want one launch a dispatch")
+        if any((len(r["out_shape"]) == 2) != (name == "chunks")
+               for r in recs):
+            raise AssertionError(f"{name}: output shapes "
+                                 f"{[r['out_shape'] for r in recs]}")
+        c["dispatches"] = dispatches
 
     # the kernel against its plain version on every wire those paths sent
     acc_err = 0
@@ -4932,41 +5051,17 @@ def main() -> int:
     if par["chunks"]["full_out_wires"] != par["chunks"]["wires"]:
         raise AssertionError("the chunk path asked for word1 only")
     phase("accuracy_parity", max_abs_err=acc_err, cpu_reference_s=cpu_s,
-          paths=par)
+          card_paths_s=card_s, worker_s=worker_s, paths=par)
     max_err = max(max_err, acc_err)
 
-    # each path once on the card, traced, with its host-clock split
-    e_dev = engine_set(tables, reg, dev)
-    dev_answers: dict = {}
-    for name, (run, n_items) in paths.items():
-        before = engine_counts(e_dev.values())
-        box: dict = {}
-        kernels.launches = 0
-        with host_split(ngram) as split, \
-                DispatchRecorder(e_dev.values()) as rec:
-            tr = device_busy(lambda: box.setdefault("got", run(e_dev)))
-        n_launch = kernels.launches
-        launches += n_launch
-        got = dev_answers[name] = box["got"]
-        after = engine_counts(e_dev.values())
-        counts = {k: after[k] - before[k] for k in after}
-        dispatches = counts.pop("device_dispatches")
-        if not (n_launch == len(rec.records) == dispatches ==
-                tr["fused_tote_traced"] > 0) or tr["other_kernels"]:
-            raise AssertionError(
-                f"{name}: {n_launch} launches, {len(rec.records)} recorded "
-                f"and {dispatches} counted dispatches, "
-                f"{tr['fused_tote_traced']} traced fused_tote launches and "
-                f"{tr['other_kernels']} other kernels "
-                f"{tr['other_kernel_names']}; want one launch a dispatch")
-        want_2d = name == "chunks"
-        if any((len(r["out_shape"]) == 2) != want_2d for r in rec.records):
-            raise AssertionError(f"{name}: output shapes "
-                                 f"{[r['out_shape'] for r in rec.records]}")
+    # each card run against the CPU run and the scalar engine's samples
+    for name, (_, n_items) in paths.items():
+        c = card[name]
+        got, recs, tr = c["got"], c["records"], c["tr"]
         cpu_answers, cpu_recs = cpu_ref[name]
-        if len(cpu_recs) != len(rec.records) or any(
+        if len(cpu_recs) != len(recs) or any(
                 not wires_equal(a["wire"], b["wire"])
-                for a, b in zip(cpu_recs, rec.sorted_records())):
+                for a, b in zip(cpu_recs, sort_records(recs))):
             raise AssertionError(f"{name}: the card's wires differ from the "
                                  "CPU run's")
         bad = [i for i, (a, b) in enumerate(zip(got, cpu_answers))
@@ -4980,21 +5075,18 @@ def main() -> int:
                 raise AssertionError(f"{name}: the scalar engine disagrees "
                                      f"on item {i}")
             cjk_rows_differ += got[i] != want_i
-        split = {**split, "other_s": tr["wall_s"] - sum(split.values())}
-        phase("accuracy", path=name, docs=n_items, launches=n_launch,
-              dispatches=dispatches, exception_docs=counts,
-              launch_k=[int(r["wire"]["k_iota"].shape[0])
-                        for r in rec.records],
-              out_shapes=sorted({str(r["out_shape"]) for r in rec.records}),
-              prior_wires=sum("cprior" in r["wire"] for r in rec.records),
+        phase("accuracy", path=name, docs=n_items, launches=c["n_launch"],
+              dispatches=c["dispatches"], exception_docs=c["counts"],
+              launch_k=[int(r["wire"]["k_iota"].shape[0]) for r in recs],
+              out_shapes=sorted({str(r["out_shape"]) for r in recs}),
+              prior_wires=sum("cprior" in r["wire"] for r in recs),
               cpu_equal=True,
               differ_from_priors_off=(sum(
-                  a != b for a, b in zip(got, dev_answers[
-                      "hinted_priors_off"]))
-                  if name == "hinted_priors_on" else None),
+                  a != b for a, b in zip(got, card["hinted_priors_off"][
+                      "got"])) if name == "hinted_priors_on" else None),
               scalar_sample=len(scalar_ref.get(name, ())) or None,
               scalar_cjk_rows_differ=cjk_rows_differ,
-              docs_per_s=n_items / tr["wall_s"], split=split, trace=tr)
+              docs_per_s=n_items / tr["wall_s"], split=c["split"], trace=tr)
 
     # -- scheduler: dedup, tier lanes, long-doc lane, retry lane, depth -----
     n_sched, sched_err = scheduler_phase(sched_inputs, sched_ref, kernels, dt,

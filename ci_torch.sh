@@ -226,6 +226,7 @@ echo "== postmortem chaos smoke =="
 # `fleet` (a SIGKILLed member's postmortem)
 port_tests \
     tests/test_torch_ci_drills.py::test_postmortem_drill \
+    tests/test_torch_ci_drills.py::test_drill_requests_stay_in_flight \
     tests/test_torch_ref_flightrec.py::test_harvest_postmortem_inflight_ids
 
 echo "== shm chaos smoke =="

@@ -196,7 +196,8 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "Fleet control-plane HTTP port (127.0.0.1): GET /fleetz (JSON "
        "member table), /sloz, /tracez and /metrics (the fleet "
        "series), POST /configz (canary-then-fan-out config push). "
-       "0 = off."),
+       "0 = off; below 0 = a free port, named on the fleet's "
+       "`fleet: starting` log line."),
     _k("LDT_FLEET_SLOT", "int", None,
        "Set BY the fleet supervisor on each member (0, 1, ...): its "
        "stable slot index, independent of generation numbers.",
@@ -497,7 +498,9 @@ _DECLARATIONS: tuple[Knob, ...] = (
        "acquisition order and raises on inversion or self-deadlock."),
     # -- service ports (reference contract, main.go:91-116) -----------
     _k("LISTEN_PORT", "int", 3000,
-       "HTTP service port for both fronts."),
+       "HTTP service port for both fronts. Under a fleet, 0 = a free "
+       "port the fleet holds for every member, named on its "
+       "`fleet: starting` log line and /fleetz."),
     _k("PROMETHEUS_PORT", "int", 30000,
        "Metrics/debug HTTP port for both fronts."),
     # -- multi-host launch contract (parallel/distributed.py) ---------

@@ -342,10 +342,11 @@ class _TableGate:
     the installed pair wait while a call for another pair is waiting,
     so two engines take turns instead of starving each other.
 
-    The first install of a process loads the library (_load), which
-    builds it when it is missing or stale, so that build runs with the
-    gate held: the lock order is native.table_gate, then
-    native.library."""
+    Every entry point loads the library (_load, which builds it when it
+    is missing or stale) before it enters the gate, so _install's own
+    _load finds it loaded and no build runs with the gate held
+    (tests/test_torch_native_gate.py); the lock order is
+    native.table_gate, then native.library."""
 
     def __init__(self):
         self._cond = threading.Condition(make_lock("native.table_gate"))

@@ -20,6 +20,15 @@ Per member, the fleet keeps the single-worker contracts intact:
     per-member metrics port, recovered from the ready-file JSON when
     the operator binds port 0.
 
+LISTEN_PORT=0 asks the fleet for a free listen port: it binds one
+itself (SO_REUSEPORT, not listening), holds it for its life and hands
+it to every member, so no other bind of port 0 can be given it while
+members come and go; a negative LDT_FLEET_STATUS_PORT likewise binds
+the control plane on a free port. Both ports are on the fleet's
+`fleet: starting` log line and /fleetz. A port probed free and closed
+before the members bind it can be handed to another fleet in the
+meantime, and SO_REUSEPORT then lets the two fleets share it silently.
+
 On top sits the fleet control plane, modeled on the device pool
 (parallel/pool.py):
 
@@ -70,6 +79,7 @@ import json
 import os
 import random
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -647,6 +657,16 @@ def _read_ready(path: str) -> dict:
         return {}
 
 
+def _hold_listen_port() -> tuple[socket.socket, int]:
+    """A free port for every member of a LISTEN_PORT=0 fleet: bound with
+    SO_REUSEPORT (the members join it) and never listened on (it takes
+    no connections), kept open by the caller for the fleet's life."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind(("0.0.0.0", 0))
+    return s, s.getsockname()[1]
+
+
 def fleet_main(module: str) -> int:
     """Supervise LDT_FLEET_WORKERS members of `module`. Returns the
     exit code to propagate (0 on a clean signal-initiated drain)."""
@@ -661,6 +681,10 @@ def fleet_main(module: str) -> int:
     loop_max = knobs.get_int("LDT_CRASH_LOOP_MAX") or 5
     swap_timeout = knobs.get_float("LDT_SWAP_TIMEOUT_SEC") or 30.0
     status_port = knobs.get_int("LDT_FLEET_STATUS_PORT") or 0
+    listen_port = knobs.get_int("LISTEN_PORT")
+    port_hold = None
+    if listen_port == 0:
+        port_hold, listen_port = _hold_listen_port()
     metrics_base = knobs.get_int("PROMETHEUS_PORT") or 0
     uds_base = knobs.get_str("LDT_UNIX_SOCKET")
     shm_base = knobs.get_str("LDT_SHM_DIR")
@@ -699,6 +723,7 @@ def fleet_main(module: str) -> int:
         # members must overlap on the listen port — with each other and
         # with their own rolling-swap standbys
         env["LDT_REUSEPORT"] = "1"
+        env["LISTEN_PORT"] = str(listen_port)
         env["LDT_READY_FILE"] = m.ready_file
         env["PROMETHEUS_PORT"] = \
             str(metrics_base + m.slot) if metrics_base > 0 else "0"
@@ -816,13 +841,16 @@ def fleet_main(module: str) -> int:
 
     status = FleetStatus()
     fleet_config = FleetConfig()
-    status_srv = _start_status_server(status_port, status,
+    status_srv = _start_status_server(max(status_port, 0), status,
                                       flightrec_base, fleet_config) \
-        if status_port > 0 else None
+        if status_port != 0 else None
+    if status_srv is not None:
+        status_port = status_srv.server_address[1]
     postmortems: list = []  # newest-last, bounded below
 
     _log("fleet: starting", reason="fleet-start", workers=n,
-         fleet_min=fmin, fleet_max=fmax, module=module)
+         fleet_min=fmin, fleet_max=fmax, module=module,
+         listen_port=listen_port, status_port=status_port)
 
     def _accepting_count() -> int:
         return sum(1 for m in members if m.accepting())
@@ -1271,6 +1299,7 @@ def fleet_main(module: str) -> int:
     def _snapshot() -> dict:
         fgen, fvalues = fleet_config.read()
         return {
+            "listen_port": listen_port,
             "members": [
                 {"slot": m.slot,
                  "pid": m.proc.pid if m.proc is not None else None,
@@ -1338,3 +1367,5 @@ def fleet_main(module: str) -> int:
     finally:
         if status_srv is not None:
             status_srv.shutdown()
+        if port_hold is not None:
+            port_hold.close()

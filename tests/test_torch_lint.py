@@ -26,7 +26,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = "language_detector_tpu_torch"
 REF = "language_detector_tpu"
 
-_LEFT_OUT = "runs trace-safety or jit-contract, which tools.lint_torch " \
+_LEFT_OUT = "left out: JAX-only: " \
+            "runs trace-safety or jit-contract, which tools.lint_torch " \
             "leaves out over the port (tools/lint_torch/__main__.py " \
             "LEFT_OUT: the port has no jax.jit)"
 

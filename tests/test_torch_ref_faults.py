@@ -9,7 +9,8 @@ test_breaker_storm_opens_then_halfopen_recovers), and the
 probabilistic storm also takes a 503 as a resolved request."""
 from torch_refcases import adopt
 
-_OPEN_BREAKER = ("the open breaker answers 503 on the port, where the "
+_OPEN_BREAKER = ("left out: C2 [scalar fallback]: "
+                 "the open breaker answers 503 on the port, where the "
                  "reference serves exact 200s on the scalar engine "
                  "(ROADMAP C2); the port's copy is tests/"
                  "test_torch_service.py::test_breaker_storm_opens_then_"
@@ -26,8 +27,8 @@ CASES = adopt("faults", globals(), replace=(
     "test_sync_breaker_storm_opens_then_halfopen_recovers": _OPEN_BREAKER,
     "test_aio_breaker_storm_opens_then_halfopen_recovers": _OPEN_BREAKER,
     "test_compile_delay_does_not_corrupt_results":
-        "the compile seam is the kernel library's first load "
-        "(ops/kernels._load), which only a CUDA engine reaches; the "
-        "card runs it as tests/test_torch_cuda.py::"
-        "test_compile_seam_fires_once_and_keeps_words",
+        "held by tests/test_torch_cuda.py::"
+        "test_compile_seam_fires_once_and_keeps_words; the compile seam "
+        "is the kernel library's first load (ops/kernels._load), which "
+        "only a CUDA engine reaches, so the card runs it",
 })

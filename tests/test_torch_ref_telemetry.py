@@ -15,6 +15,7 @@ CASES = adopt("telemetry", globals(), replace=(
      ""),
 ), exclude={
     "test_compile_counter_two_shapes":
+        "left out: JAX-only: "
         "it counts XLA compiles per padded wire shape; the port compiles "
         "nothing per shape, and its ldt_xla_compiles_total counts the "
         "kernel library's first load in a process, which a CPU engine "

@@ -10,7 +10,8 @@ touched.
 Rewrite map (applied in order, word-bounded):
 
   language_detector_tpu      -> language_detector_tpu_torch, except in
-                                "language_detector_tpu" / "data" paths:
+                                "language_detector_tpu" / "data" and
+                                "language_detector_tpu", "data" paths:
                                 the port reads the reference's data
   libldtpack.so              -> libldtpack_torch.so (the port's packer)
   tools.lint                 -> tools.lint_torch
@@ -35,7 +36,7 @@ import pytest
 TESTS = Path(__file__).resolve().parent
 
 REWRITES = (
-    (re.compile(r"\blanguage_detector_tpu\b(?!\"\s*/\s*\"data\")"),
+    (re.compile(r"\blanguage_detector_tpu\b(?!\"\s*[/,]\s*\"data\")"),
      "language_detector_tpu_torch"),
     (re.compile(r"\blibldtpack\.so\b"), "libldtpack_torch.so"),
     (re.compile(r"\btools\.lint\b"), "tools.lint_torch"),
